@@ -1,0 +1,69 @@
+"""Command line of the port: the ``bm`` subcommand.
+
+``bm`` is the reference's BlockMatching ``singleFrame`` demo: two images
+in, a scaled disparity PNG out. ``--fused`` runs the fused SAD + WTA kernel
+(its plain twin on ``--device cpu``); without it the unfused ops path runs.
+
+Run: ``python -m gpu_stereo_matching_tpu_torch.cli.main bm L.png R.png out.png --device cuda --fused``
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+import numpy as np
+import torch
+
+
+def _cmd_bm(args) -> int:
+    from gpu_stereo_matching_tpu.core.config import BlockMatchingConfig
+    from gpu_stereo_matching_tpu.io.images import load_image_bgr, load_image_gray, save_image
+    from gpu_stereo_matching_tpu_torch.device import resolve_device
+    from gpu_stereo_matching_tpu_torch.kernels.sad_wta import fused_block_matching
+    from gpu_stereo_matching_tpu_torch.models.block_matching import block_matching_pipeline
+    from gpu_stereo_matching_tpu_torch.ops.color import gray_blockmatching_bgr
+
+    device = resolve_device(args.device)
+
+    def load_gray(path):
+        if args.gray:
+            return torch.tensor(load_image_gray(path), device=device)
+        return gray_blockmatching_bgr(torch.tensor(load_image_bgr(path), device=device))
+
+    left, right = load_gray(args.left), load_gray(args.right)
+    if args.fused:
+        disp = fused_block_matching(left, right, args.disparities, args.radius)
+    else:
+        cfg = BlockMatchingConfig(num_disparities=args.disparities, sad_radius=args.radius)
+        disp = block_matching_pipeline(left, right, cfg)
+    out = disp.cpu().numpy()
+    save_image(args.out, np.clip(out * args.scale, 0, 255).astype(np.uint8))
+    print(f"wrote {args.out} (max disparity {int(out.max())})")
+    return 0
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="gpu_stereo_matching_tpu_torch")
+    sub = p.add_subparsers(dest="command", required=True)
+    bm = sub.add_parser("bm", help="SAD block matching")
+    bm.add_argument("left")
+    bm.add_argument("right")
+    bm.add_argument("out")
+    bm.add_argument("--disparities", type=int, default=64)
+    bm.add_argument("--radius", type=int, default=5)
+    bm.add_argument("--scale", type=int, default=4)
+    bm.add_argument("--gray", action="store_true", help="inputs already gray")
+    bm.add_argument("--fused", action="store_true", help="use the fused kernel")
+    bm.add_argument("--device", default="cpu", help="cpu, cuda or cuda:N")
+    bm.set_defaults(fn=_cmd_bm)
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,44 @@
+"""Bilinear remap as a plain torch gather: the plain twin of the remap kernel.
+
+Same per-pixel formula as ``gpu_stereo_matching_tpu/ops/remap.py``: 0
+whenever any of the four taps lies outside the source (strict, so the last
+row and column give 0), and a round-half-even saturating uint8 cast. Each
+float operation is its own torch op, so nothing is contracted into an FMA.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from gpu_stereo_matching_tpu_torch.ops.color import round_sat_u8
+
+
+def remap_bilinear_u8(
+    src: torch.Tensor, map_x: torch.Tensor, map_y: torch.Tensor
+) -> torch.Tensor:
+    """Remap (..., Hs, Ws) uint8 through (Ho, Wo) float32 maps -> (..., Ho, Wo).
+
+    Validity compares the floored maps as floats (``x0 <= Ws - 2`` is
+    ``x0 + 1 <= Ws - 1`` for integers), which also keeps NaN and
+    out-of-int32-range coordinates invalid.
+    """
+    h, w = src.shape[-2], src.shape[-1]
+    x0f = torch.floor(map_x)
+    y0f = torch.floor(map_y)
+    valid = (x0f >= 0) & (y0f >= 0) & (x0f <= w - 2) & (y0f <= h - 2)
+    x0 = torch.clamp(x0f, 0, w - 2).to(torch.int64)
+    y0 = torch.clamp(y0f, 0, h - 2).to(torch.int64)
+    flat = src.reshape(src.shape[:-2] + (h * w,)).to(torch.float32)
+    base = y0 * w + x0
+
+    q11 = flat[..., base]
+    q12 = flat[..., base + 1]
+    q21 = flat[..., base + w]
+    q22 = flat[..., base + w + 1]
+
+    fx = map_x - x0f
+    fy = map_y - y0f
+    top = (1.0 - fy) * ((1.0 - fx) * q11 + fx * q12)
+    bot = fy * ((1.0 - fx) * q21 + fx * q22)
+    out = torch.where(valid, top + bot, torch.zeros((), dtype=torch.float32, device=src.device))
+    return round_sat_u8(out)
