@@ -15,7 +15,23 @@ Phases, each printing its own line:
    results bit-exact against the plain path on the card, and both kernels'
    launch counters must have risen during this phase;
 7. CUDA-event timings (warmed, median of several runs) of each kernel beside
-   its plain twin and of the rig, printed as JSON lines.
+   its plain twin and of the rig, printed as JSON lines;
+8. split-phase SAD volume and argmin kernels vs their plain twins on the
+   card, bit-exact, on the edge shapes and at 1080x1920 D=64 r=5; the
+   argmin also on right-view volumes, which hold INT32_MAX;
+9. median kernel vs its plain twin, bit-exact: r in {1, 3, 4, 7, 9, 60}
+   with and without a random valid mask, a mask with all-invalid windows,
+   constant 0 and 255 images, a (2, H, W) batch, 1080x1920 at r=3, 5, and
+   r=127 through ``median_filter_u8(method="auto")``;
+10. the bm+ path (D=64, r=5, LR check, median r=3): ``block_matching_pipeline``
+   on two 1080x1920 pairs, a ``fused=False`` rig at 720x1280 (``process`` on
+   3 pairs, ``process_batch`` on 4), and the ``bm`` CLI on a 1080p PNG pair;
+   each bit-exact against the same path with every kernel replaced by its
+   plain twin; the counters are set to 0 before each entry point and must
+   read its exact launches just after it;
+11. CUDA-event timings at 1080p of the three new kernels beside their twins
+   and of the bm+ frame beside its all-plain run, and the bm+ frame's time
+   by stage.
 
 Then one JSON line with the kernels' summary, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
@@ -24,9 +40,11 @@ Then one JSON line with the kernels' summary, and last
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -84,10 +102,250 @@ def cuda_ms(fn, reps: int = TIME_REPS) -> float:
     return statistics.median(times)
 
 
+def shifted_pair(rng, dev, shape, shift: int):
+    """A random left view and a right view whose content sits ``shift``
+    pixels to the left, with +-2 levels of noise: disparity ``shift``."""
+    left = rng.integers(0, 256, shape, dtype=np.uint8)
+    noise = rng.integers(-2, 3, shape)
+    right = np.clip(np.roll(left, -shift, axis=1) + noise, 0, 255).astype(np.uint8)
+    return torch.from_numpy(left).to(dev), torch.from_numpy(right).to(dev)
+
+
+def run_bm_plus_phases(dev, u8, calib) -> list:
+    """Phases 8-11: the split-phase and median kernels vs their twins, the
+    bm+ path through its three entry points, and the timings. Returns the
+    three kernels' entries of the summary line."""
+    from gpu_stereo_matching_tpu_torch import BlockMatchingConfig
+    from PIL import Image
+    from gpu_stereo_matching_tpu_torch.cli.main import main as cli_main
+    from gpu_stereo_matching_tpu_torch.kernels import ctmf_median, remap, split_phase
+    from gpu_stereo_matching_tpu_torch.models.block_matching import (
+        _right_view_sad,
+        block_matching_pipeline,
+        block_matching_reference,
+    )
+    from gpu_stereo_matching_tpu_torch.models.streaming import StereoRig
+    from gpu_stereo_matching_tpu_torch.ops.color import gray_blockmatching_bgr
+    from gpu_stereo_matching_tpu_torch.ops.postprocess import lr_consistency_mask, median_filter_u8
+    from gpu_stereo_matching_tpu_torch.ops.remap import remap_bilinear_u8
+    from gpu_stereo_matching_tpu_torch.ops.wta import wta_disparity
+
+    int32_max = torch.iinfo(torch.int32).max
+    rng = np.random.default_rng(SEED + 1)
+
+    def differ(got, want, what):
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not torch.equal(got, want):
+            err = int((got.long() - want.long()).abs().max()) if got.shape == want.shape else -1
+            raise AssertionError(f"{what}: kernel differs from its twin (max abs err {err})")
+        return 0
+
+    # 8. Split-phase kernels vs their twins.
+    err_e1 = err_e2 = 0
+    right_views = 0
+    for _, h, w, d, r in EDGE_CASES + [(1, 1080, 1920, 64, 5)]:
+        left, right = u8((h, w)), u8((h, w))
+        vol = split_phase.sad_volume(left, right, d, r)
+        want = split_phase.sad_volume_reference(left, right, d, r)
+        err_e1 = max(err_e1, differ(vol, want, f"sad_volume {(h, w, d, r)}"))
+        err_e2 = max(err_e2, differ(split_phase.wta_from_sad(vol), wta_disparity(want),
+                                    f"wta_from_sad {(h, w, d, r)}"))
+        del want
+        vol_r = _right_view_sad(vol)
+        if d > 1:
+            if int(vol_r.max()) != int32_max:
+                raise AssertionError("right-view volume holds no INT32_MAX")
+            right_views += 1
+        err_e2 = max(err_e2, differ(split_phase.wta_from_sad(vol_r), wta_disparity(vol_r),
+                                    f"wta_from_sad right view {(h, w, d, r)}"))
+        del vol, vol_r
+    torch.cuda.empty_cache()
+    log("8-split-phase-vs-twin", cases=len(EDGE_CASES) + 1, right_views_with_int32_max=right_views,
+        max_abs_err_sad_volume=err_e1, max_abs_err_wta=err_e2, ok=True)
+
+    # 9. Median kernel vs its twin.
+    err_d = 0
+    cases = 0
+    for shape, r in [((70, 250), 1), ((70, 250), 3), ((70, 250), 4), ((70, 250), 7),
+                     ((70, 250), 9), ((150, 260), 60), ((2, 33, 150), 3),
+                     ((1080, 1920), 3), ((1080, 1920), 5)]:
+        x = u8(shape)
+        mask = torch.from_numpy(rng.random(shape[-2:]) > 0.3).to(dev)
+        hole = torch.ones(shape[-2:], dtype=torch.bool, device=dev)
+        hole[5:30, 10:150] = False  # windows inside see no valid pixel
+        for m in (None, mask, hole):
+            got = ctmf_median.ctmf_median_u8(x, r, m)
+            err_d = max(err_d, differ(got, median_filter_u8(x, r, "histogram", m),
+                                      f"median {shape} r={r}"))
+            cases += 1
+            if m is hole and r <= 4 and not bool((got[..., 5 + r:30 - r, 10 + r:150 - r] == 255).all()):
+                raise AssertionError("an all-invalid window did not give 255")
+    for value in (0, 255):
+        x = torch.full((70, 250), value, dtype=torch.uint8, device=dev)
+        for r in (3, 60):
+            err_d = max(err_d, differ(ctmf_median.ctmf_median_u8(x, r), x, f"median constant {value}"))
+            cases += 1
+    # Past the JAX kernel's r <= 60, "auto" takes the kernel up to r = 127.
+    x = u8((150, 300))
+    before = ctmf_median.LAUNCHES
+    got = median_filter_u8(x, 127)
+    if ctmf_median.LAUNCHES != before + 1:
+        raise AssertionError("median_filter_u8(auto) at r=127 did not launch the kernel")
+    err_d = max(err_d, differ(got, median_filter_u8(x, 127, "histogram"), "median r=127"))
+    cases += 1
+    log("9-median-vs-twin", cases=cases, max_abs_err=err_d, ok=True)
+
+    # 10. The bm+ path through its three entry points, counters from 0.
+    cfg = BlockMatchingConfig(num_disparities=64, sad_radius=5, lr_consistency=True,
+                              lr_max_diff=1, median_radius=3)
+    shifts = (9, 23)
+    pairs = [shifted_pair(rng, dev, (1080, 1920), s) for s in shifts]
+    left2 = torch.stack([p[0] for p in pairs])
+    right2 = torch.stack([p[1] for p in pairs])
+    rig_hw = (720, 1280)
+    rig = StereoRig(calib, rig_hw, cfg, device=dev, fused=False)
+    rig_pairs = [(u8((*rig_hw, 3)), u8((*rig_hw, 3))) for _ in range(3)]
+    rig_lb, rig_rb = u8((4, *rig_hw, 3)), u8((4, *rig_hw, 3))
+    tmp = tempfile.TemporaryDirectory()
+    lp, rp, op = (os.path.join(tmp.name, n) for n in ("l.png", "r.png", "d.png"))
+    cli_left, cli_right = shifted_pair(rng, dev, (1080, 1920, 3), 17)
+    for path, bgr in ((lp, cli_left), (rp, cli_right)):
+        Image.fromarray(bgr.cpu().numpy()[..., ::-1].copy()).save(path)  # BGR -> RGB file
+    torch.cuda.synchronize()
+
+    def counted(what, want, run):
+        """Run one entry point with every counter at 0; its launches must be
+        exactly ``want``: E1 once, E2 twice and D once per frame, remap once
+        per view and call."""
+        split_phase.LAUNCHES.update(sad_volume=0, wta_from_sad=0)
+        ctmf_median.LAUNCHES = 0
+        remap.LAUNCHES = 0
+        out = run()
+        torch.cuda.synchronize()
+        got = {**split_phase.LAUNCHES, "ctmf_median": ctmf_median.LAUNCHES,
+               "remap": remap.LAUNCHES}
+        if got != want:
+            raise AssertionError(f"{what} launched {got}, not {want}")
+        return out, got
+
+    def per_frame(frames, remaps):
+        return {"sad_volume": frames, "wta_from_sad": 2 * frames, "ctmf_median": frames,
+                "remap": remaps}
+
+    disp2, n_pipeline = counted("block_matching_pipeline", per_frame(2, 0),
+                                lambda: block_matching_pipeline(left2, right2, cfg))
+    (rig_singles, rig_batch), n_rig = counted(
+        "fused=False rig", per_frame(3 + 4, 2 * 3 + 2),
+        lambda: ([rig.process(l, r) for l, r in rig_pairs], rig.process_batch(rig_lb, rig_rb)))
+    cli_rc, n_cli = counted(
+        "bm CLI", per_frame(1, 0),
+        lambda: cli_main(["bm", lp, rp, op, "--lr-check", "--median-radius", "3",
+                          "--device", "cuda"]))
+    if cli_rc != 0:
+        raise AssertionError("bm CLI failed")
+    launches = {k: n_pipeline[k] + n_rig[k] + n_cli[k] for k in n_pipeline}
+
+    differ(disp2, block_matching_reference(left2, right2, cfg), "bm+ pipeline at 1080p")
+    hits = [float((disp2[i][:, 64:] == s).float().mean()) for i, s in enumerate(shifts)]
+    if disp2.shape != (2, 1080, 1920) or min(hits) < 0.9:
+        raise AssertionError(f"bm+ at 1080p found the true disparity on only {hits}")
+
+    def rig_plain(left_bgr, right_bgr):
+        rl = remap_bilinear_u8(gray_blockmatching_bgr(left_bgr), rig.left_map_x, rig.left_map_y)
+        rr = remap_bilinear_u8(gray_blockmatching_bgr(right_bgr), rig.right_map_x, rig.right_map_y)
+        return block_matching_reference(rl, rr, cfg)
+
+    for (l, r), got in zip(rig_pairs, rig_singles):
+        differ(got, rig_plain(l, r), "fused=False rig.process")
+    differ(rig_batch, rig_plain(rig_lb, rig_rb), "fused=False rig.process_batch")
+    if rig_batch.shape != (4, *rig_hw) or int(rig_batch.min()) < 0 or int(rig_batch.max()) >= 64:
+        raise AssertionError("rig disparities outside [0, D)")
+
+    def read_png(path, mode):
+        with Image.open(path) as im:
+            return np.asarray(im.convert(mode))
+
+    def load_gray(path):
+        bgr = read_png(path, "RGB")[..., ::-1].copy()
+        return gray_blockmatching_bgr(torch.from_numpy(bgr).to(dev))
+
+    cli_disp = block_matching_reference(load_gray(lp), load_gray(rp), cfg)
+    cli_png = torch.tensor(read_png(op, "L"), device=dev)
+    differ(cli_png, (cli_disp * 4).clamp(0, 255).to(torch.uint8), "bm CLI output")
+    cli_hit = float((cli_disp[:, 64:] == 17).float().mean())
+    if cli_hit < 0.9:
+        raise AssertionError(f"bm CLI found the true disparity on only {cli_hit}")
+    tmp.cleanup()
+    log("10-bm-plus-path", config=[64, 5, "lr", 1, "median", 3], pipeline_pairs=[2, 1080, 1920],
+        true_disparity_share=hits, rig=[*rig_hw], rig_process_pairs=3, rig_batch=4,
+        cli=[1080, 1920], cli_true_disparity_share=cli_hit, launches_pipeline=n_pipeline,
+        launches_rig=n_rig, launches_cli=n_cli, ok=True)
+    del disp2, left2, right2, rig, rig_pairs, rig_singles, rig_lb, rig_rb, rig_batch, cli_disp
+    torch.cuda.empty_cache()
+
+    # 11. Timings at 1080p.
+    l1, r1 = pairs[0]
+    vol = split_phase.sad_volume(l1, r1, 64, 5)
+    t_e1 = cuda_ms(lambda: split_phase.sad_volume(l1, r1, 64, 5))
+    p_e1 = cuda_ms(lambda: split_phase.sad_volume_reference(l1, r1, 64, 5), reps=3)
+    t_e2 = cuda_ms(lambda: split_phase.wta_from_sad(vol))
+    p_e2 = cuda_ms(lambda: wta_disparity(vol))
+    img = u8((1080, 1920))
+    t_d = {r: cuda_ms(lambda: ctmf_median.ctmf_median_u8(img, r)) for r in (3, 7)}
+    p_d = {r: cuda_ms(lambda: median_filter_u8(img, r, "histogram"), reps=3) for r in (3, 7)}
+    for name, t, p in (("sad_volume", t_e1, p_e1), ("wta_from_sad", t_e2, p_e2)):
+        log("11-time", kernel=name, shape=[1080, 1920, 64, 5], ms=t, plain_ms=p)
+    for r in (3, 7):
+        log("11-time", kernel="ctmf_median", shape=[1080, 1920], radius=r, ms=t_d[r], plain_ms=p_d[r])
+    t_bm = cuda_ms(lambda: block_matching_pipeline(l1, r1, cfg))
+    p_bm = cuda_ms(lambda: block_matching_reference(l1, r1, cfg), reps=3)
+    log("11-time", path="bm+", shape=[1080, 1920, 64, 5], median_radius=3, ms_per_frame=t_bm,
+        fps=1e3 / t_bm, plain_ms_per_frame=p_bm, plain_fps=1e3 / p_bm)
+    disp = split_phase.wta_from_sad(vol)
+    vol_r = _right_view_sad(vol)
+    disp_r = split_phase.wta_from_sad(vol_r)
+    del vol_r
+    masked = torch.where(lr_consistency_mask(disp, disp_r, 1), disp, 0)
+    stages = {
+        "sad_volume": t_e1,
+        "right_view_gather": cuda_ms(lambda: _right_view_sad(vol)),
+        "wta_from_sad_x2": 2 * t_e2,
+        "lr_mask": cuda_ms(lambda: torch.where(lr_consistency_mask(disp, disp_r, 1), disp, 0)),
+        "median_r3": cuda_ms(lambda: ctmf_median.ctmf_median_u8(masked.to(torch.uint8), 3)),
+    }
+    log("11-time", path="bm+ by stage", shape=[1080, 1920, 64, 5], stages_ms=stages,
+        sum_ms=sum(stages.values()), frame_ms=t_bm)
+    del vol
+    torch.cuda.empty_cache()
+
+    def entry(name, source, replaces, count, err, ms, plain_ms, shape):
+        return {"name": name, "route": "cuda",
+                "source": f"gpu_stereo_matching_tpu_torch/kernels/csrc/{source}",
+                "replaces": f"gpu_stereo_matching_tpu/kernels/{replaces}",
+                "launches": count, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "shape": shape}
+
+    return [
+        entry("sad_volume", "split_phase.cu", "split_phase.py:92", launches["sad_volume"],
+              err_e1, t_e1, p_e1, [1080, 1920, 64, 5]),
+        entry("wta_from_sad", "split_phase.cu", "split_phase.py:159", launches["wta_from_sad"],
+              err_e2, t_e2, p_e2, [64, 1080, 1920]),
+        entry("ctmf_median_u8", "ctmf_median.cu", "ctmf_median.py:169", launches["ctmf_median"],
+              err_d, t_d[3], p_d[3], [1080, 1920, 3]),
+    ]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU", file=sys.stderr)
         return 1
+    # Before any output: without the package beside it the script prints nothing.
+    from gpu_stereo_matching_tpu_torch import BlockMatchingConfig
+    from gpu_stereo_matching_tpu_torch.kernels import _build, remap, sad_wta
+    from gpu_stereo_matching_tpu_torch.models.streaming import StereoRig
+    from gpu_stereo_matching_tpu_torch.ops.color import gray_blockmatching_bgr, gray_rec601_bgr
+    from gpu_stereo_matching_tpu_torch.ops.remap import remap_bilinear_u8
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -96,12 +354,6 @@ def main() -> int:
     dev = torch.device("cuda:0")
     log("1-device", kind=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
         nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
-
-    from gpu_stereo_matching_tpu_torch import BlockMatchingConfig
-    from gpu_stereo_matching_tpu_torch.kernels import _build, remap, sad_wta
-    from gpu_stereo_matching_tpu_torch.models.streaming import StereoRig
-    from gpu_stereo_matching_tpu_torch.ops.color import gray_blockmatching_bgr, gray_rec601_bgr
-    from gpu_stereo_matching_tpu_torch.ops.remap import remap_bilinear_u8
 
     t0 = time.perf_counter()
     lib_path = _build.build()
@@ -212,6 +464,10 @@ def main() -> int:
     log("7-time", rig=[*size_hw, num_d, radius], batch=8, ms=t_rig, fps=8e3 / t_rig,
         plain_ms=t_plain_rig, plain_fps=8e3 / t_plain_rig, process_ms=t_one,
         process_fps=1e3 / t_one)
+    del a1, g1, g8, lb, rb, pairs, singles, batch, triples
+    torch.cuda.empty_cache()
+
+    bm_plus = run_bm_plus_phases(dev, u8, synthetic_calibration())
 
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         raise AssertionError("jax was imported")
@@ -226,6 +482,7 @@ def main() -> int:
          "replaces": "gpu_stereo_matching_tpu/kernels/remap.py:457",
          "launches": launches["remap"], "max_abs_err": err_b,
          "ms": t_b1, "plain_ms": p_b1, "shape": [1, *size_hw]},
+        *bm_plus,
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

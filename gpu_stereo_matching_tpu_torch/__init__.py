@@ -5,10 +5,17 @@ A port of ``gpu_stereo_matching_tpu`` (JAX on a TPU), which stays beside it
 as the reference. The port mirrors its layout and names; it imports the
 reference's JAX-free host modules (configuration, calibration I/O,
 rectification maps, image I/O) and never imports ``jax``. The host types of
-its public API are re-exported here.
+its public API and the block-matching entry points are re-exported here.
 """
 
 from gpu_stereo_matching_tpu.core.config import BlockMatchingConfig  # noqa: F401
 from gpu_stereo_matching_tpu.io.calib_yaml import StereoCalibration  # noqa: F401
+from gpu_stereo_matching_tpu_torch.models.block_matching import (  # noqa: F401
+    block_matching_pipeline,
+)
+from gpu_stereo_matching_tpu_torch.ops.postprocess import (  # noqa: F401
+    lr_consistency_mask,
+    median_filter_u8,
+)
 
 __version__ = "0.1.0"

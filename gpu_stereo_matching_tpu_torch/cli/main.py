@@ -1,10 +1,13 @@
 """Command line of the port: the ``bm`` subcommand.
 
 ``bm`` is the reference's BlockMatching ``singleFrame`` demo: two images
-in, a scaled disparity PNG out. ``--fused`` runs the fused SAD + WTA kernel
-(its plain twin on ``--device cpu``); without it the unfused ops path runs.
+in, a scaled (or, with ``--colorize``, turbo-colored) disparity PNG out.
+Without ``--fused`` the unfused path runs, with the ``--lr-check`` and
+``--median-radius`` post-filters; ``--fused`` runs the fused SAD + WTA
+kernel (its plain twin on ``--device cpu``) and, as in the JAX package,
+ignores the post-filters.
 
-Run: ``python -m gpu_stereo_matching_tpu_torch.cli.main bm L.png R.png out.png --device cuda --fused``
+Run: ``python -m gpu_stereo_matching_tpu_torch.cli.main bm L.png R.png out.png --lr-check --median-radius 3 --device cuda``
 """
 
 from __future__ import annotations
@@ -35,10 +38,20 @@ def _cmd_bm(args) -> int:
     if args.fused:
         disp = fused_block_matching(left, right, args.disparities, args.radius)
     else:
-        cfg = BlockMatchingConfig(num_disparities=args.disparities, sad_radius=args.radius)
+        cfg = BlockMatchingConfig(
+            num_disparities=args.disparities,
+            sad_radius=args.radius,
+            lr_consistency=args.lr_check,
+            median_radius=args.median_radius,
+        )
         disp = block_matching_pipeline(left, right, cfg)
     out = disp.cpu().numpy()
-    save_image(args.out, np.clip(out * args.scale, 0, 255).astype(np.uint8))
+    if args.colorize:
+        from gpu_stereo_matching_tpu.io.visualize import colorize_disparity
+
+        save_image(args.out, colorize_disparity(out, args.disparities))
+    else:
+        save_image(args.out, np.clip(out * args.scale, 0, 255).astype(np.uint8))
     print(f"wrote {args.out} (max disparity {int(out.max())})")
     return 0
 
@@ -54,7 +67,11 @@ def build_parser() -> argparse.ArgumentParser:
     bm.add_argument("--radius", type=int, default=5)
     bm.add_argument("--scale", type=int, default=4)
     bm.add_argument("--gray", action="store_true", help="inputs already gray")
-    bm.add_argument("--fused", action="store_true", help="use the fused kernel")
+    bm.add_argument("--fused", action="store_true",
+                    help="use the fused kernel (ignores --lr-check and --median-radius)")
+    bm.add_argument("--lr-check", action="store_true", help="left-right consistency")
+    bm.add_argument("--median-radius", type=int, default=0)
+    bm.add_argument("--colorize", action="store_true", help="turbo-colormap output")
     bm.add_argument("--device", default="cpu", help="cpu, cuda or cuda:N")
     bm.set_defaults(fn=_cmd_bm)
     return p

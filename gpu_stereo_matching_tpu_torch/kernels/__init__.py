@@ -1,1 +1,13 @@
 """Hand-written CUDA kernels and their wrappers; sources in ``csrc/``."""
+
+from gpu_stereo_matching_tpu_torch.kernels.ctmf_median import ctmf_median_u8  # noqa: F401
+from gpu_stereo_matching_tpu_torch.kernels.remap import remap_bilinear_u8_direct  # noqa: F401
+from gpu_stereo_matching_tpu_torch.kernels.sad_wta import (  # noqa: F401
+    fused_block_matching,
+    fused_block_matching_batched,
+)
+from gpu_stereo_matching_tpu_torch.kernels.split_phase import (  # noqa: F401
+    sad_volume,
+    split_phase_block_matching,
+    wta_from_sad,
+)

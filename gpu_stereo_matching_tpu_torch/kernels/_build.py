@@ -1,7 +1,8 @@
 """Build the CUDA sources in ``kernels/csrc`` with ``nvcc`` and load them.
 
 All ``csrc/*.cu`` files compile into one shared library with a plain C
-interface, at first use, into ``kernels/_build/`` (git-ignored). The file
+interface, at first use, into ``kernels/_build/`` (git-ignored): one
+``nvcc -c`` per source, all started together, then one link. The file
 name carries a hash of the sources and flags, so an edited source rebuilds.
 The library is loaded with :mod:`ctypes`; each wrapper passes pointers and
 the stream as ``c_void_p``. There is no fallback: without ``nvcc``, or when
@@ -22,9 +23,9 @@ CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     # The remap kernel must not contract multiply-adds (it also spells its
-    # float math with __fmul_rn/__fadd_rn); the SAD kernel is integer-only.
+    # float math with __fmul_rn/__fadd_rn); the other kernels are integer-only.
     "-fmad=false",
 )
 
@@ -34,6 +35,9 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "gsm_sad_wta_u8": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gsm_remap_bilinear_u8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "gsm_sad_volume_u8": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "gsm_wta_i32": [_P, _P, _I, _I, _P],
+    "gsm_median_u8": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _library = None
@@ -73,16 +77,27 @@ def build() -> Path:
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objects = [os.path.join(tmp, f"{src.stem}.o") for src in _sources()]
+        compiles = [
+            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
+            for src, obj in zip(_sources(), objects)
+        ]
+        procs = [
+            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for cmd in compiles
+        ]
+        # All compiles run at once; collect each one's errors in turn.
+        errors = [p.communicate()[1] for p in procs]
+        for cmd, p, err in zip(compiles, procs, errors):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{err}")
+        lib = os.path.join(tmp, "lib.so")
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objects]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(link)}\n{proc.stderr}")
+        os.replace(lib, out)
     return out
 
 
@@ -99,6 +114,16 @@ def load_library() -> ctypes.CDLL:
         lib.gsm_error_string.restype = ctypes.c_char_p
         _library = lib
     return _library
+
+
+def require_cuda(t, what: str) -> None:
+    """Raise unless tensor ``t`` is on a CUDA device: a wrapper given a
+    tensor off the CPU launches its kernel or raises, never falls back."""
+    if t.device.type != "cuda":
+        raise RuntimeError(
+            f"{what}: no kernel for device {t.device}; "
+            "pass CPU tensors for the plain version or CUDA tensors for the kernel"
+        )
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -52,8 +52,7 @@ def remap_bilinear_u8_direct(
     _check(src, map_x, map_y)
     if src.device.type == "cpu":
         return remap_bilinear_u8(src, map_x, map_y)
-    if src.device.type != "cuda":
-        raise RuntimeError(f"remap: no kernel for device {src.device}")
+    _build.require_cuda(src, "remap")
     if not (src.is_contiguous() and map_x.is_contiguous() and map_y.is_contiguous()):
         raise ValueError("remap: source and maps must be contiguous")
     batched = src if src.dim() == 3 else src[None]

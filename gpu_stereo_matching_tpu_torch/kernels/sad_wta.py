@@ -58,11 +58,7 @@ def fused_block_matching_reference(
 def _launch(left: torch.Tensor, right: torch.Tensor, num_disparities: int,
             radius: int) -> torch.Tensor:
     global LAUNCHES
-    if left.device.type != "cuda":
-        raise RuntimeError(
-            f"fused block matching: no kernel for device {left.device}; "
-            "pass CPU tensors for the plain version or CUDA tensors for the kernel"
-        )
+    _build.require_cuda(left, "fused block matching")
     if not (left.is_contiguous() and right.is_contiguous()):
         raise ValueError("fused block matching: inputs must be contiguous")
     if not 0 <= radius <= MAX_RADIUS:

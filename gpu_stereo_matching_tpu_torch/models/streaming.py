@@ -1,10 +1,13 @@
-"""Calibrated-rig streaming pipeline: BGR -> gray -> remap -> fused block matching.
+"""Calibrated-rig streaming pipeline: BGR -> gray -> remap -> block matching.
 
-The port of ``gpu_stereo_matching_tpu/models/streaming.py::StereoRig`` (on
-its ``use_pallas=True`` path). The rectification maps are computed once per
-calibration on the host and held as float32 buffers; each frame pair runs
-the gray conversion, the remap kernel and the fused SAD + WTA kernel. A
-batch is one launch of each kernel over (B, H, W).
+The port of ``gpu_stereo_matching_tpu/models/streaming.py::StereoRig``. The
+rectification maps are computed once per calibration on the host and held
+as float32 buffers; each frame pair runs the gray conversion, the remap
+kernel and then either the fused SAD + WTA kernel (``fused=True``, the JAX
+rig's ``use_pallas=True``; a batch is one launch of each kernel over
+(B, H, W)) or the unfused block matching of ``models/block_matching.py``
+with its LR and median post-filters (``fused=False``, the JAX rig's
+``use_pallas=False``; a batch runs frame by frame, as ``jax.lax.map``).
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from gpu_stereo_matching_tpu_torch.kernels.sad_wta import (
     fused_block_matching,
     fused_block_matching_batched,
 )
+from gpu_stereo_matching_tpu_torch.models.block_matching import block_matching_pipeline
 from gpu_stereo_matching_tpu_torch.ops.color import gray_blockmatching_bgr
 from gpu_stereo_matching_tpu_torch.utils.cache import ArtifactCache, content_key
 
@@ -33,7 +37,13 @@ MAP_NAMES = ("left_map_x", "left_map_y", "right_map_x", "right_map_y")
 
 
 class StereoRig(nn.Module):
-    """Streaming disparity engine for one calibrated stereo rig."""
+    """Streaming disparity engine for one calibrated stereo rig.
+
+    ``fused`` is the JAX rig's ``use_pallas``: True runs the fused kernel,
+    which, as in JAX, ignores ``config.lr_consistency`` and
+    ``config.median_radius``; False runs the unfused path, which honours
+    them.
+    """
 
     def __init__(
         self,
@@ -42,9 +52,11 @@ class StereoRig(nn.Module):
         config: BlockMatchingConfig = BlockMatchingConfig(),
         cache: Optional[ArtifactCache] = None,
         device: str | torch.device = "cpu",
+        fused: bool = True,
     ) -> None:
         super().__init__()
         self.config = config
+        self.fused = fused
         self.image_size_hw = tuple(image_size_hw)
         dev = resolve_device(device)
         cache = cache or ArtifactCache()
@@ -89,11 +101,15 @@ class StereoRig(nn.Module):
     def process(self, left_bgr, right_bgr) -> torch.Tensor:
         """One (H, W, 3) uint8 BGR pair -> (H, W) int32 disparity."""
         rl, rr = self._rectified_gray(self._frames(left_bgr, 3), self._frames(right_bgr, 3))
+        if not self.fused:
+            return block_matching_pipeline(rl, rr, self.config)
         return fused_block_matching(rl, rr, self.config.num_disparities, self.config.sad_radius)
 
     def process_batch(self, left_bgr, right_bgr) -> torch.Tensor:
         """(B, H, W, 3) uint8 BGR batches -> (B, H, W) int32 disparities."""
         rl, rr = self._rectified_gray(self._frames(left_bgr, 4), self._frames(right_bgr, 4))
+        if not self.fused:
+            return block_matching_pipeline(rl, rr, self.config)
         return fused_block_matching_batched(
             rl, rr, self.config.num_disparities, self.config.sad_radius
         )

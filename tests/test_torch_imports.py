@@ -15,10 +15,13 @@ PORT_MODULES = [
     "gpu_stereo_matching_tpu_torch.ops.cost",
     "gpu_stereo_matching_tpu_torch.ops.aggregate",
     "gpu_stereo_matching_tpu_torch.ops.wta",
+    "gpu_stereo_matching_tpu_torch.ops.postprocess",
     "gpu_stereo_matching_tpu_torch.models.block_matching",
     "gpu_stereo_matching_tpu_torch.kernels._build",
     "gpu_stereo_matching_tpu_torch.kernels.sad_wta",
     "gpu_stereo_matching_tpu_torch.kernels.remap",
+    "gpu_stereo_matching_tpu_torch.kernels.split_phase",
+    "gpu_stereo_matching_tpu_torch.kernels.ctmf_median",
     "gpu_stereo_matching_tpu_torch.utils.cache",
     "gpu_stereo_matching_tpu_torch.models.streaming",
     "gpu_stereo_matching_tpu_torch.convert",
