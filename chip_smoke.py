@@ -31,7 +31,36 @@ Phases, each printing its own line:
    read its exact launches just after it;
 11. CUDA-event timings at 1080p of the three new kernels beside their twins
    and of the bm+ frame beside its all-plain run, and the bm+ frame's time
-   by stage.
+   by stage;
+12. the partial-range key kernel vs its plain twin, bit-exact: edge shapes
+   (ragged tiles, B = 1 and 3) with ranges that start at 0, at an odd d and
+   end at the total, r in {0, 1, 5, 7}, and the four ranges of D=64 at
+   1080x1920; then, for D=64 split into 1, 2, 4 and 8 ranges, the minimum
+   of the ranges' keys mod 64 equals the fused kernel at every pixel;
+13. the sharded step at full width (1080x1920, D=64, r=5, B=8) on virtual
+   meshes on the card of shapes (1,1,1), (1,1,4), (1,4,1), (2,2,2), (1,2,4):
+   each equals the fused kernel on the whole frames and the same step
+   without the kernel; the key kernel's counter is set to 0 before each
+   step and must read data x space x disp after it;
+14. the sharded config-2 step (LR check, median r=3) at B=2 on (1,1,1),
+   (1,2,2), (1,4,1): the meshes agree at every pixel; the line counts the
+   pixels that differ from the single-device bm+ pipeline;
+15. ``parallel/launch.py::main`` in-process (``--data 2 --space 2 --disp 2
+   --frames 8 --device cuda``), then timings: the key kernel beside the
+   fused kernel and its twin, the sharded step per frame on each mesh of
+   phase 13 beside the fused kernel at B=8, and the step by part on
+   (1,1,4) and (1,4,1). On one card a virtual mesh measures what sharding
+   costs (halo rows computed twice, one launch per disparity part plus the
+   minimum, copies), not what it gains.
+
+Each kernel's entry of the summary line carries its bound: the least time
+the card could take, the larger of its bytes (each input read once, each
+output written once) over 3.35 TB/s and its operations over 67e12 32-bit
+operations per second (the float32 rate outside the tensor cores; the data
+sheet gives no separate integer rate). Operations are counted from the
+separable running-sum form: per pixel and disparity 2 for the absolute
+difference, 2 for the vertical and 2 for the horizontal running sum, plus
+2 for the (min, argmin) update or 3 for the packed key and its minimum.
 
 Then one JSON line with the kernels' summary, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
@@ -57,6 +86,22 @@ EDGE_CASES = [  # (B, H, W, D, r): ragged tiles, odd D, r = 0, D = W, r = 6
     (1, 16, 257, 12, 4), (1, 24, 40, 7, 2), (1, 24, 40, 8, 6), (1, 30, 120, 63, 5),
     (1, 30, 120, 64, 5), (1, 33, 64, 64, 0), (1, 37, 300, 64, 5), (3, 70, 250, 33, 3),
 ]
+KEY_RANGES = [  # (d_start, count, total)
+    (0, 8, 8), (3, 5, 8), (5, 3, 16), (16, 16, 64), (48, 16, 64), (33, 31, 64), (0, 64, 64),
+]
+KEY_SHAPES = [(1, 21, 33), (1, 9, 130), (3, 70, 250), (1, 37, 300), (1, 16, 257), (3, 40, 64)]
+MESH_SHAPES = [(1, 1, 1), (1, 1, 4), (1, 4, 1), (2, 2, 2), (1, 2, 4)]
+PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, data sheet
+PEAK_OPS_PER_S = 67e12      # 32-bit operations outside the tensor cores, data sheet
+
+
+def bound(operations: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of operations over
+    the peak rate and bytes over the memory rate, and which of them it is."""
+    t_ops = operations / PEAK_OPS_PER_S * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
 def log(phase: str, **fields) -> None:
@@ -109,6 +154,15 @@ def shifted_pair(rng, dev, shape, shift: int):
     noise = rng.integers(-2, 3, shape)
     right = np.clip(np.roll(left, -shift, axis=1) + noise, 0, 255).astype(np.uint8)
     return torch.from_numpy(left).to(dev), torch.from_numpy(right).to(dev)
+
+
+def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms, shape):
+    """One kernel's entry of the summary line."""
+    return {"name": name, "route": "cuda",
+            "source": f"gpu_stereo_matching_tpu_torch/kernels/csrc/{source}",
+            "replaces": f"gpu_stereo_matching_tpu/kernels/{replaces}",
+            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            **bnd, "library_ms": library_ms, "shape": shape}
 
 
 def run_bm_plus_phases(dev, u8, calib) -> list:
@@ -290,6 +344,7 @@ def run_bm_plus_phases(dev, u8, calib) -> list:
     p_e1 = cuda_ms(lambda: split_phase.sad_volume_reference(l1, r1, 64, 5), reps=3)
     t_e2 = cuda_ms(lambda: split_phase.wta_from_sad(vol))
     p_e2 = cuda_ms(lambda: wta_disparity(vol))
+    lib_e2 = cuda_ms(lambda: torch.argmin(vol, dim=0))  # the yardstick, used nowhere in the port
     img = u8((1080, 1920))
     t_d = {r: cuda_ms(lambda: ctmf_median.ctmf_median_u8(img, r)) for r in (3, 7)}
     p_d = {r: cuda_ms(lambda: median_filter_u8(img, r, "histogram"), reps=3) for r in (3, 7)}
@@ -318,21 +373,223 @@ def run_bm_plus_phases(dev, u8, calib) -> list:
     del vol
     torch.cuda.empty_cache()
 
-    def entry(name, source, replaces, count, err, ms, plain_ms, shape):
-        return {"name": name, "route": "cuda",
-                "source": f"gpu_stereo_matching_tpu_torch/kernels/csrc/{source}",
-                "replaces": f"gpu_stereo_matching_tpu/kernels/{replaces}",
-                "launches": count, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "shape": shape}
-
+    px = 1080 * 1920
     return [
-        entry("sad_volume", "split_phase.cu", "split_phase.py:92", launches["sad_volume"],
-              err_e1, t_e1, p_e1, [1080, 1920, 64, 5]),
-        entry("wta_from_sad", "split_phase.cu", "split_phase.py:159", launches["wta_from_sad"],
-              err_e2, t_e2, p_e2, [64, 1080, 1920]),
-        entry("ctmf_median_u8", "ctmf_median.cu", "ctmf_median.py:169", launches["ctmf_median"],
-              err_d, t_d[3], p_d[3], [1080, 1920, 3]),
+        # 6 operations per pixel and disparity; 2 bytes in, 4 * D out per pixel.
+        kernel_entry("sad_volume", "split_phase.cu", "split_phase.py:92", launches["sad_volume"],
+                     err_e1, t_e1, p_e1, bound(6 * 64 * px, (2 + 4 * 64) * px), None,
+                     [1080, 1920, 64, 5]),
+        # Compare and select per element; the volume in, the disparities out.
+        kernel_entry("wta_from_sad", "split_phase.cu", "split_phase.py:159",
+                     launches["wta_from_sad"], err_e2, t_e2, p_e2,
+                     bound(2 * 64 * px, (4 * 64 + 4) * px), lib_e2, [64, 1080, 1920]),
+        # Huang's form at r=3: 2 (2r + 1) histogram updates and a 32-bin scan
+        # per pixel; 1 byte in, 1 out.
+        kernel_entry("ctmf_median_u8", "ctmf_median.cu", "ctmf_median.py:169",
+                     launches["ctmf_median"], err_d, t_d[3], p_d[3],
+                     bound((2 * 7 + 32) * px, 2 * px), None, [1080, 1920, 3]),
     ]
+
+
+def run_sharded_phases(dev, u8, t_fused_b1: float) -> dict:
+    """Phases 12-15: the key kernel vs its twin, the sharded steps on
+    virtual meshes on the card, the launcher, and the timings. Returns the
+    key kernel's entry of the summary line."""
+    import contextlib
+    import io
+
+    from gpu_stereo_matching_tpu_torch import BlockMatchingConfig
+    from gpu_stereo_matching_tpu_torch.core.config import MeshConfig
+    from gpu_stereo_matching_tpu_torch.kernels import sad_wta
+    from gpu_stereo_matching_tpu_torch.models.block_matching import block_matching_pipeline
+    from gpu_stereo_matching_tpu_torch.parallel import launch
+    from gpu_stereo_matching_tpu_torch.parallel.halo import extend_with_row_halos
+    from gpu_stereo_matching_tpu_torch.parallel.mesh import virtual_mesh
+    from gpu_stereo_matching_tpu_torch.parallel.stereo import (
+        make_sharded_block_matching,
+        make_sharded_block_matching_full,
+        shard_batch,
+        unshard,
+    )
+
+    key = sad_wta.fused_block_matching_key
+    key_twin = sad_wta.fused_block_matching_key_reference
+    hw, num_d, radius = (1080, 1920), 64, 5
+
+    def same(got, want, what):
+        torch.cuda.synchronize()
+        if got.shape != want.shape or got.dtype != want.dtype or not torch.equal(got, want):
+            raise AssertionError(f"{what}: results differ")
+
+    # 12. Kernel C vs its twin, and the identity that ties it to kernel A.
+    cases = 0
+    for shape in KEY_SHAPES:
+        for d_start, count, total in KEY_RANGES:
+            if total > shape[-1]:
+                continue
+            for r in (0, 1, 5, 7):
+                left, right = u8(shape), u8(shape)
+                same(key(left, right, d_start, count, total, r),
+                     key_twin(left, right, d_start, count, total, r),
+                     f"key kernel {shape} {(d_start, count, total)} r={r}")
+                cases += 1
+    left2, right2 = u8((2, *hw)), u8((2, *hw))
+    fused2 = sad_wta.fused_block_matching_batched(left2, right2, num_d, radius)
+    splits = []
+    for parts in (1, 2, 4, 8):
+        count = num_d // parts
+        keys = None
+        for k in range(parts):
+            part = key(left2, right2, k * count, count, num_d, radius)
+            if parts == 4:
+                same(part, key_twin(left2, right2, k * count, count, num_d, radius),
+                     f"key kernel at 1080p, range {k} of 4")
+                cases += 1
+            keys = part if keys is None else torch.minimum(keys, part)
+        same(keys % num_d, fused2, f"minimum over {parts} ranges vs the fused kernel")
+        splits.append(parts)
+    del left2, right2, fused2, keys, part
+    log("12-key-kernel-vs-twin", cases=cases, max_abs_err=0, splits_equal_fused=splits, ok=True)
+
+    # 13. The sharded step at full width on virtual meshes on the card.
+    cfg = BlockMatchingConfig(num_disparities=num_d, sad_radius=radius)
+    left8, right8 = u8((8, *hw)), u8((8, *hw))
+    fused8 = sad_wta.fused_block_matching_batched(left8, right8, num_d, radius)
+    steps = {}
+    step_launches = {}
+    for shape in MESH_SHAPES:
+        mesh = virtual_mesh(MeshConfig(*shape), dev)
+        sl, sr = shard_batch(mesh, left8, right8)
+        step = make_sharded_block_matching(mesh, cfg)
+        torch.cuda.synchronize()
+        sad_wta.KEY_LAUNCHES = 0
+        got = unshard(step(sl, sr))
+        torch.cuda.synchronize()
+        step_launches[str(shape)] = sad_wta.KEY_LAUNCHES
+        if sad_wta.KEY_LAUNCHES != shape[0] * shape[1] * shape[2]:
+            raise AssertionError(
+                f"sharded step on {shape} launched the key kernel {sad_wta.KEY_LAUNCHES} times")
+        same(got, fused8, f"sharded step on {shape} vs the fused kernel")
+        plain = unshard(make_sharded_block_matching(mesh, cfg, use_kernel=False)(sl, sr))
+        same(got, plain, f"sharded step on {shape} vs the step without the kernel")
+        if sad_wta.KEY_LAUNCHES != step_launches[str(shape)]:
+            raise AssertionError("the step without the kernel launched the key kernel")
+        steps[shape] = (step, sl, sr)
+        del got, plain
+    torch.cuda.empty_cache()
+    log("13-sharded-step", shape=[8, *hw, num_d, radius], meshes=MESH_SHAPES,
+        key_kernel_launches=step_launches, equals_fused_kernel=True,
+        equals_step_without_kernel=True, ok=True)
+
+    # 14. The sharded config-2 step.
+    cfg2 = BlockMatchingConfig(num_disparities=num_d, sad_radius=radius, lr_consistency=True,
+                               lr_max_diff=1, median_radius=3)
+    rng = np.random.default_rng(SEED + 2)
+    pairs = [shifted_pair(rng, dev, hw, s) for s in (9, 23)]
+    left_b = torch.stack([p[0] for p in pairs])
+    right_b = torch.stack([p[1] for p in pairs])
+    full = {}
+    for shape in [(1, 1, 1), (1, 2, 2), (1, 4, 1)]:
+        mesh = virtual_mesh(MeshConfig(*shape), dev)
+        sl, sr = shard_batch(mesh, left_b, right_b)
+        full[shape] = unshard(make_sharded_block_matching_full(mesh, cfg2)(sl, sr))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    for shape in [(1, 2, 2), (1, 4, 1)]:
+        same(full[shape], full[(1, 1, 1)], f"sharded config-2 step on {shape} vs (1, 1, 1)")
+    single = block_matching_pipeline(left_b, right_b, cfg2)
+    differ = int((single != full[(1, 1, 1)]).sum())
+    hits = [float((full[(1, 1, 1)][i][:, 64:] == s).float().mean()) for i, s in enumerate((9, 23))]
+    if min(hits) < 0.9:
+        raise AssertionError(f"sharded config-2 step found the true disparity on only {hits}")
+    log("14-sharded-config-2", shape=[2, *hw, num_d, radius], median_radius=3,
+        meshes=[[1, 1, 1], [1, 2, 2], [1, 4, 1]], meshes_agree=True,
+        pixels_differing_from_bm_plus_pipeline=differ, true_disparity_share=hits, ok=True)
+    del full, single, left_b, right_b, pairs
+    torch.cuda.empty_cache()
+
+    # 15. The launcher, then the timings.
+    sad_wta.KEY_LAUNCHES = 0
+    captured = io.StringIO()
+    with contextlib.redirect_stdout(captured):
+        rc = launch.main(["--data", "2", "--space", "2", "--disp", "2", "--frames", "8",
+                          "--device", "cuda"])
+    torch.cuda.synchronize()
+    points = [json.loads(line) for line in captured.getvalue().splitlines()]
+    # Two points, (1,2,2) and (2,2,2): 4 and 8 launches a step, 1 warm-up + 3 timed steps each.
+    if rc != 0 or [p["devices"] for p in points] != [4, 8] or sad_wta.KEY_LAUNCHES != 48:
+        raise AssertionError(f"launch.main: rc {rc}, points {points}, "
+                             f"{sad_wta.KEY_LAUNCHES} launches")
+    log("15-launch-main", argv="--data 2 --space 2 --disp 2 --frames 8 --device cuda",
+        points=points, key_kernel_launches=sad_wta.KEY_LAUNCHES,
+        note="virtual mesh on one card: what sharding costs there, not what it gains", ok=True)
+
+    l1, r1 = left8[:1], right8[:1]
+    t_c = cuda_ms(lambda: key(l1, r1, 0, 64, 64, 5))
+    t_a = cuda_ms(lambda: sad_wta.fused_block_matching_batched(l1, r1, 64, 5))
+    p_c = cuda_ms(lambda: key_twin(l1, r1, 0, 64, 64, 5), reps=3)
+    t_c16 = cuda_ms(lambda: key(l1, r1, 16, 16, 64, 5))
+    p_c16 = cuda_ms(lambda: key_twin(l1, r1, 16, 16, 64, 5), reps=3)
+    log("15-time", kernel="sad_wta_key", shape=[1, *hw, 5], range=[0, 64, 64], ms=t_c,
+        plain_ms=p_c, fused_kernel_ms=t_a, fused_kernel_ms_phase_7=t_fused_b1)
+    log("15-time", kernel="sad_wta_key", shape=[1, *hw, 5], range=[16, 16, 64], ms=t_c16,
+        plain_ms=p_c16)
+    t_a8 = cuda_ms(lambda: sad_wta.fused_block_matching_batched(left8, right8, 64, 5))
+    per_frame = {str(shape): cuda_ms(lambda: step(sl, sr)) / 8
+                 for shape, (step, sl, sr) in steps.items()}
+    log("15-time", path="sharded step, virtual mesh on one card", shape=[8, *hw, num_d, radius],
+        ms_per_frame=per_frame, fused_kernel_ms_per_frame=t_a8 / 8,
+        note="what sharding costs on one card (halo rows computed twice, one launch per "
+             "disparity part plus the minimum, copies), not what it gains")
+
+    def crop(x):
+        return x[..., radius:-radius, :]
+
+    for shape in [(1, 1, 4), (1, 4, 1)]:
+        _, n_space, n_disp = shape
+        step, sl, sr = steps[shape]
+        count = num_d // n_disp
+
+        def halos():
+            return [(extend_with_row_halos([sl.pieces[0][j][k] for j in range(n_space)], radius),
+                     extend_with_row_halos([sr.pieces[0][j][k] for j in range(n_space)], radius))
+                    for k in range(n_disp)]
+
+        slabs = halos()
+
+        def kernels():
+            return [[key(slabs[k][0][j], slabs[k][1][j], k * count, count, num_d, radius)
+                     for k in range(n_disp)] for j in range(n_space)]
+
+        keys = kernels()
+
+        def minimum():
+            out = []
+            for parts in keys:
+                best = crop(parts[0])
+                for part in parts[1:]:
+                    best = torch.minimum(best, crop(part))
+                out.append(best)
+            return out
+
+        reduced = minimum()
+        parts_ms = {
+            "halo_slabs": cuda_ms(halos),
+            "key_kernel_launches": cuda_ms(kernels),
+            "crop_and_minimum_over_disp": cuda_ms(minimum),
+            "mod_and_cast": cuda_ms(lambda: [(k % num_d).to(torch.int32) for k in reduced]),
+        }
+        log("15-time", path="sharded step by part", mesh=list(shape), batch=8,
+            parts_ms=parts_ms, sum_ms=sum(parts_ms.values()), step_ms=per_frame[str(shape)] * 8)
+        del slabs, keys, reduced
+    del steps, left8, right8, fused8
+    torch.cuda.empty_cache()
+
+    px = hw[0] * hw[1]
+    # 9 operations per pixel and disparity; 2 bytes in, 4 of keys out per pixel.
+    return kernel_entry("fused_block_matching_key", "sad_wta_key.cu", "sad_wta.py:527",
+                        sum(step_launches.values()), 0, t_c, p_c,
+                        bound(9 * 64 * px, 6 * px), None, [1, *hw, 5, [0, 64, 64]])
 
 
 def main() -> int:
@@ -358,7 +615,8 @@ def main() -> int:
     t0 = time.perf_counter()
     lib_path = _build.build()
     _build.load_library()
-    log("2-build", seconds=time.perf_counter() - t0, library=lib_path.name)
+    log("2-build", seconds=time.perf_counter() - t0, library=lib_path.name,
+        sources=len(list(_build.CSRC.glob("*.cu"))))
 
     rng = np.random.default_rng(SEED)
 
@@ -414,11 +672,13 @@ def main() -> int:
     sad_wta.LAUNCHES = 0
     remap.LAUNCHES = 0
     singles = [rig.process(l, r) for l, r in pairs]
+    launches = {"sad_wta_single": sad_wta.LAUNCHES}
     batch = rig.process_batch(lb, rb)
     torch.cuda.synchronize()
-    launches = {"sad_wta": sad_wta.LAUNCHES, "remap": remap.LAUNCHES}
-    if launches["sad_wta"] < 1 or launches["remap"] < 1:
-        raise AssertionError(f"main path did not launch every kernel: {launches}")
+    launches.update(sad_wta_batched=sad_wta.LAUNCHES - launches["sad_wta_single"],
+                    remap=remap.LAUNCHES)
+    if launches != {"sad_wta_single": 3, "sad_wta_batched": 1, "remap": 8}:
+        raise AssertionError(f"main path did not launch every kernel as expected: {launches}")
 
     def plain_path(left_bgr, right_bgr):
         rl = remap_bilinear_u8(gray_blockmatching_bgr(left_bgr), rig.left_map_x, rig.left_map_y)
@@ -468,20 +728,27 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     bm_plus = run_bm_plus_phases(dev, u8, synthetic_calibration())
+    key_kernel = run_sharded_phases(dev, u8, t_a1)
 
-    if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
-        raise AssertionError("jax was imported")
+    bad = [m for m in sys.modules
+           if m.split(".")[0] in ("jax", "jaxlib", "gpu_stereo_matching_tpu")]
+    if bad:
+        raise AssertionError(f"jax or the JAX package was imported: {bad}")
+    px = 1080 * 1920
     print(json.dumps({"kernels": [
-        {"name": "fused_sad_wta", "route": "cuda",
-         "source": "gpu_stereo_matching_tpu_torch/kernels/csrc/sad_wta.cu",
-         "replaces": "gpu_stereo_matching_tpu/kernels/sad_wta.py:398",
-         "launches": launches["sad_wta"], "max_abs_err": err_a,
-         "ms": t_a1, "plain_ms": p_a1, "shape": [1, 1080, 1920, 64, 5]},
-        {"name": "remap_bilinear_u8", "route": "cuda",
-         "source": "gpu_stereo_matching_tpu_torch/kernels/csrc/remap.cu",
-         "replaces": "gpu_stereo_matching_tpu/kernels/remap.py:457",
-         "launches": launches["remap"], "max_abs_err": err_b,
-         "ms": t_b1, "plain_ms": p_b1, "shape": [1, *size_hw]},
+        # 8 operations per pixel and disparity; 2 bytes in, 4 out per pixel.
+        kernel_entry("fused_block_matching", "sad_wta.cu", "sad_wta.py:398",
+                     launches["sad_wta_single"], err_a, t_a1, p_a1,
+                     bound(8 * 64 * px, 6 * px), None, [1, 1080, 1920, 64, 5]),
+        kernel_entry("fused_block_matching_batched", "sad_wta.cu", "sad_wta.py:727",
+                     launches["sad_wta_batched"], err_a, t_a32, p_a32,
+                     bound(32 * 8 * 64 * px, 32 * 6 * px), None, [32, 1080, 1920, 64, 5]),
+        # About 16 float operations per pixel (two floors, the weights, four
+        # taps); per frame 1 byte in and 1 out per pixel, the two maps once.
+        kernel_entry("remap_bilinear_u8", "remap.cu", "remap.py:457", launches["remap"], err_b,
+                     t_b1, p_b1, bound(16 * 720 * 1280, (2 + 8) * 720 * 1280), None,
+                     [1, *size_hw]),
+        key_kernel,
         *bm_plus,
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,14 +2,15 @@
 hand-written CUDA kernels for Hopper (sm_90a).
 
 A port of ``gpu_stereo_matching_tpu`` (JAX on a TPU), which stays beside it
-as the reference. The port mirrors its layout and names; it imports the
-reference's JAX-free host modules (configuration, calibration I/O,
-rectification maps, image I/O) and never imports ``jax``. The host types of
-its public API and the block-matching entry points are re-exported here.
+as the reference. The port mirrors its layout and names and imports
+neither ``jax`` nor anything of the reference package: it keeps its own
+copies of the plain-numpy host modules it uses (``core/config.py``, ``io/``,
+``calib/rectify.py``). The host types of its public API and the
+block-matching entry points are re-exported here.
 """
 
-from gpu_stereo_matching_tpu.core.config import BlockMatchingConfig  # noqa: F401
-from gpu_stereo_matching_tpu.io.calib_yaml import StereoCalibration  # noqa: F401
+from gpu_stereo_matching_tpu_torch.core.config import BlockMatchingConfig  # noqa: F401
+from gpu_stereo_matching_tpu_torch.io.calib_yaml import StereoCalibration  # noqa: F401
 from gpu_stereo_matching_tpu_torch.models.block_matching import (  # noqa: F401
     block_matching_pipeline,
 )

@@ -20,8 +20,8 @@ import torch
 
 
 def _cmd_bm(args) -> int:
-    from gpu_stereo_matching_tpu.core.config import BlockMatchingConfig
-    from gpu_stereo_matching_tpu.io.images import load_image_bgr, load_image_gray, save_image
+    from gpu_stereo_matching_tpu_torch.core.config import BlockMatchingConfig
+    from gpu_stereo_matching_tpu_torch.io.images import load_image_bgr, load_image_gray, save_image
     from gpu_stereo_matching_tpu_torch.device import resolve_device
     from gpu_stereo_matching_tpu_torch.kernels.sad_wta import fused_block_matching
     from gpu_stereo_matching_tpu_torch.models.block_matching import block_matching_pipeline
@@ -47,7 +47,7 @@ def _cmd_bm(args) -> int:
         disp = block_matching_pipeline(left, right, cfg)
     out = disp.cpu().numpy()
     if args.colorize:
-        from gpu_stereo_matching_tpu.io.visualize import colorize_disparity
+        from gpu_stereo_matching_tpu_torch.io.visualize import colorize_disparity
 
         save_image(args.out, colorize_disparity(out, args.disparities))
     else:

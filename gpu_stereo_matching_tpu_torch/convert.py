@@ -1,19 +1,21 @@
-"""Carry a rig's state from the JAX package to the port.
+"""Carry state from the JAX package to the port: a rig's maps, a mesh's shape.
 
 The system has no weights: a rig's state is its four float32
 rectification maps, which the JAX rig holds in ``StereoRig._maps`` as
 (left map_x, left map_y, right map_x, right map_y). Passed as numpy arrays
 (``np.asarray`` of each), they become the port rig's buffers, so both rigs
-compute from the same maps.
+compute from the same maps. The sharded steps' state is the mesh's shape,
+which crosses as a plain dict of ints.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Mapping, Sequence
 
 import numpy as np
 import torch
 
+from gpu_stereo_matching_tpu_torch.core.config import MeshConfig
 from gpu_stereo_matching_tpu_torch.models.streaming import MAP_NAMES, StereoRig
 
 
@@ -40,3 +42,13 @@ def load_maps(rig: StereoRig, maps: Sequence[np.ndarray]) -> StereoRig:
             raise ValueError(f"{name}: map shape {tuple(t.shape)} != rig size {rig.image_size_hw}")
     rig.load_state_dict(state, strict=True)
     return rig
+
+
+def mesh_config_from_jax(axis_sizes: Mapping[str, int]) -> MeshConfig:
+    """The port's ``MeshConfig`` of a JAX mesh, given as
+    ``dict(zip(mesh.axis_names, mesh.devices.shape))``: plain ints, so a test
+    builds both meshes from one description."""
+    names = MeshConfig().axis_names
+    if set(axis_sizes) != set(names):
+        raise ValueError(f"expected the axes {names}, got {tuple(axis_sizes)}")
+    return MeshConfig(**{name: int(axis_sizes[name]) for name in names})

@@ -5,6 +5,7 @@ from gpu_stereo_matching_tpu_torch.kernels.remap import remap_bilinear_u8_direct
 from gpu_stereo_matching_tpu_torch.kernels.sad_wta import (  # noqa: F401
     fused_block_matching,
     fused_block_matching_batched,
+    fused_block_matching_key,
 )
 from gpu_stereo_matching_tpu_torch.kernels.split_phase import (  # noqa: F401
     sad_volume,

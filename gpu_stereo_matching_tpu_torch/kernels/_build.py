@@ -34,6 +34,7 @@ _I = ctypes.c_int
 # C entry name -> argument types; every entry returns a cudaError_t as int.
 _SIGNATURES = {
     "gsm_sad_wta_u8": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "gsm_sad_key_u8": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "gsm_remap_bilinear_u8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gsm_sad_volume_u8": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gsm_wta_i32": [_P, _P, _I, _I, _P],

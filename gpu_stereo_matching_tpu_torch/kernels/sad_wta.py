@@ -1,7 +1,9 @@
-"""Fused SAD + WTA block matching: the CUDA kernel ``csrc/sad_wta.cu`` and
-its plain torch twin.
+"""Fused SAD + WTA block matching: the CUDA kernels ``csrc/sad_wta.cu``
+(whole disparity range -> disparity) and ``csrc/sad_wta_key.cu`` (a partial
+range -> packed keys, for a disparity-sharded mesh) and their plain torch
+twins.
 
-Both reproduce the fused TPU kernel of
+All reproduce the fused TPU kernel of
 ``gpu_stereo_matching_tpu/kernels/sad_wta.py``, whose invalid columns
 (``x < d``) cost the full-window constant ``255 * (2r + 1)`` after the
 vertical sum, even at the top and bottom ``r`` rows. The unfused ops path
@@ -21,11 +23,23 @@ from gpu_stereo_matching_tpu_torch.core.validation import check_gray_pair
 from gpu_stereo_matching_tpu_torch.kernels import _build
 from gpu_stereo_matching_tpu_torch.ops.aggregate import box_filter_sum
 
-# Kernel launches since import (or since a caller reset it to 0).
+# Kernel launches since import (or since a caller reset them to 0): the
+# whole-range kernel and the partial-range key kernel.
 LAUNCHES = 0
+KEY_LAUNCHES = 0
 
-# The kernel's blocks are 128 or 256 threads wide, 2r + 32 of them at least.
+# Both kernels' blocks are 128 or 256 threads wide, 2r + 32 of them at least.
 MAX_RADIUS = 112
+
+
+def _fused_sad(li, ri, col, d: int, radius: int) -> torch.Tensor:
+    """SAD map of one disparity by the fused formula, int32 in and out."""
+    w = li.shape[-1]
+    diff = torch.zeros_like(li)
+    diff[..., d:] = (li[..., d:] - ri[..., : w - d]).abs()
+    v = box_filter_sum(diff, radius, dims=(-2,))
+    v = torch.where(col < d, 255 * (2 * radius + 1), v)
+    return box_filter_sum(v, radius, dims=(-1,))
 
 
 def fused_block_matching_reference(
@@ -35,20 +49,14 @@ def fused_block_matching_reference(
     radius: int = 5,
 ) -> torch.Tensor:
     """Plain torch twin of the kernel: (..., H, W) uint8 -> (..., H, W) int32."""
-    w = left_gray.shape[-1]
-    k = 2 * radius + 1
     li = left_gray.to(torch.int32)
     ri = right_gray.to(torch.int32)
-    col = torch.arange(w, device=left_gray.device)
+    col = torch.arange(left_gray.shape[-1], device=left_gray.device)
     best = torch.full(li.shape, torch.iinfo(torch.int32).max, dtype=torch.int32,
                       device=left_gray.device)
     best_d = torch.zeros(li.shape, dtype=torch.int32, device=left_gray.device)
     for d in range(num_disparities):
-        diff = torch.zeros_like(li)
-        diff[..., d:] = (li[..., d:] - ri[..., : w - d]).abs()
-        v = box_filter_sum(diff, radius, dims=(-2,))
-        v = torch.where(col < d, 255 * k, v)
-        sad = box_filter_sum(v, radius, dims=(-1,))
+        sad = _fused_sad(li, ri, col, d, radius)
         upd = sad < best
         best = torch.where(upd, sad, best)
         best_d = torch.where(upd, d, best_d)
@@ -105,3 +113,97 @@ def fused_block_matching_batched(
     if left_gray.device.type == "cpu":
         return fused_block_matching_reference(left_gray, right_gray, num_disparities, radius)
     return _launch(left_gray, right_gray, num_disparities, radius)
+
+
+def fused_block_matching_key_reference(
+    left_gray: torch.Tensor,
+    right_gray: torch.Tensor,
+    d_start: int,
+    count: int,
+    total_disparities: int,
+    radius: int = 5,
+) -> torch.Tensor:
+    """Plain torch twin of the key kernel: (..., H, W) uint8 -> (..., H, W)
+    int32, the minimum over ``d_start <= d < d_start + count`` of
+    ``SAD(d) * total_disparities + d``."""
+    li = left_gray.to(torch.int32)
+    ri = right_gray.to(torch.int32)
+    col = torch.arange(left_gray.shape[-1], device=left_gray.device)
+    best = torch.full(li.shape, torch.iinfo(torch.int32).max, dtype=torch.int32,
+                      device=left_gray.device)
+    for d in range(d_start, d_start + count):
+        sad = _fused_sad(li, ri, col, d, radius)
+        best = torch.minimum(best, sad * total_disparities + d)
+    return best
+
+
+def _launch_key(left: torch.Tensor, right: torch.Tensor, d_start: int, count: int,
+                total_disparities: int, radius: int) -> torch.Tensor:
+    global KEY_LAUNCHES
+    _build.require_cuda(left, "fused_block_matching_key")
+    if not (left.is_contiguous() and right.is_contiguous()):
+        raise ValueError("fused_block_matching_key: inputs must be contiguous")
+    if radius > MAX_RADIUS:
+        raise ValueError(
+            f"fused_block_matching_key: the kernel takes radius <= {MAX_RADIUS}, got {radius}"
+        )
+    lib = _build.load_library()
+    b, h, w = left.shape
+    out = torch.empty((b, h, w), dtype=torch.int32, device=left.device)
+    with torch.cuda.device(left.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.gsm_sad_key_u8(
+            left.data_ptr(), right.data_ptr(), out.data_ptr(),
+            b, h, w, d_start, count, total_disparities, radius, stream,
+        )
+    _build.check(lib, err, "gsm_sad_key_u8")
+    KEY_LAUNCHES += 1
+    return out
+
+
+def fused_block_matching_key(
+    left_gray: torch.Tensor,
+    right_gray: torch.Tensor,
+    d_start: int,
+    count: int,
+    total_disparities: int,
+    radius: int = 5,
+) -> torch.Tensor:
+    """Partial-range WTA of a (H, W) or (B, H, W) uint8 pair -> int32 keys of
+    the same shape: the minimum over ``d_start <= d < d_start + count`` of
+    ``SAD(d) * total_disparities + d``, SAD by the fused formula.
+
+    It is what one shard of a disparity-sharded mesh computes: the
+    elementwise minimum of the shards' keys, taken ``% total_disparities``,
+    is the disparity over the whole range with ties to the smallest d. A
+    batch is one launch. The image's top and bottom rows are its borders; a
+    caller that passes a slab with halo rows crops them itself.
+
+    ``d_start`` is a plain int. Raises ``ValueError`` when the range leaves
+    ``[0, total_disparities)`` or when the largest key,
+    ``255 * (2r + 1)**2 * total_disparities + total_disparities``, does not
+    fit int32 (the JAX function checks neither and would wrap there).
+    """
+    what = "fused_block_matching_key"
+    check_gray_pair(left_gray, right_gray, total_disparities, what)
+    if radius < 0:
+        raise ValueError(f"{what}: radius {radius} < 0")
+    if count < 1 or d_start < 0 or d_start + count > total_disparities:
+        raise ValueError(
+            f"{what}: range [{d_start}, {d_start + count}) is empty or leaves "
+            f"[0, {total_disparities})"
+        )
+    k = 2 * radius + 1
+    if 255 * k * k * total_disparities + total_disparities >= 2**31:
+        raise ValueError(
+            f"{what}: a key of radius {radius} and {total_disparities} disparities "
+            "does not fit int32"
+        )
+    if left_gray.device.type == "cpu":
+        return fused_block_matching_key_reference(
+            left_gray, right_gray, d_start, count, total_disparities, radius
+        )
+    if left_gray.dim() == 2:
+        return _launch_key(left_gray[None], right_gray[None], d_start, count,
+                           total_disparities, radius)[0]
+    return _launch_key(left_gray, right_gray, d_start, count, total_disparities, radius)

@@ -14,7 +14,7 @@ from typing import Callable
 
 import torch
 
-from gpu_stereo_matching_tpu.core.config import BlockMatchingConfig
+from gpu_stereo_matching_tpu_torch.core.config import BlockMatchingConfig
 from gpu_stereo_matching_tpu_torch.core.validation import check_gray_pair
 from gpu_stereo_matching_tpu_torch.kernels.split_phase import (
     sad_volume,

@@ -19,9 +19,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from gpu_stereo_matching_tpu.calib.rectify import rectification_maps_from_calibration
-from gpu_stereo_matching_tpu.core.config import BlockMatchingConfig
-from gpu_stereo_matching_tpu.io.calib_yaml import StereoCalibration
+from gpu_stereo_matching_tpu_torch.calib.rectify import rectification_maps_from_calibration
+from gpu_stereo_matching_tpu_torch.core.config import BlockMatchingConfig
+from gpu_stereo_matching_tpu_torch.io.calib_yaml import StereoCalibration
 from gpu_stereo_matching_tpu_torch.device import resolve_device
 from gpu_stereo_matching_tpu_torch.kernels.remap import remap_bilinear_u8_direct
 from gpu_stereo_matching_tpu_torch.kernels.sad_wta import (
@@ -127,7 +127,7 @@ def rig_from_yaml(
     ``scale_intrinsics_from``: the calibration's own resolution (H, W) when
     the rig runs at another ``image_size_hw`` (intrinsics are rescaled).
     """
-    from gpu_stereo_matching_tpu.io.calib_yaml import load_opencv_stereo_yaml
+    from gpu_stereo_matching_tpu_torch.io.calib_yaml import load_opencv_stereo_yaml
 
     calib = load_opencv_stereo_yaml(path)
     if scale_intrinsics_from is not None:
