@@ -7,7 +7,12 @@ Phases, each printing its own line:
 1. require CUDA; print the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from ``gpu_stereo_matching_tpu_torch/kernels/csrc``;
 3. fused SAD + WTA kernel vs its plain twin on the card, bit-exact, on edge
-   shapes and at 1080x1920 D=64 r=5 with B=1 and B=4;
+   shapes and at 1080x1920 D=64 r=5 with B=1 and B=4, then on structured
+   inputs (constant images, two-level images, 255 against 0, a shifted
+   pair) at shapes that leave ragged tiles and strips, with odd D, D = W
+   and B = 3; the line counts the cases each of the kernel's two bodies
+   ran, and the phase fails if a body ran none or if (D, r) = (64, 5) does
+   not take the strip body;
 4. remap kernel vs its plain twin at 720x1280 through a rig's maps;
 5. gray conversion on the card vs on the CPU over all 2**24 BGR triples;
 6. the main path: a 720x1280, D=64, r=5 StereoRig from a synthetic
@@ -15,7 +20,10 @@ Phases, each printing its own line:
    results bit-exact against the plain path on the card, and both kernels'
    launch counters must have risen during this phase;
 7. CUDA-event timings (warmed, median of several runs) of each kernel beside
-   its plain twin and of the rig, printed as JSON lines;
+   its plain twin and of the rig, printed as JSON lines, with the fused
+   kernel's launch plan (body, tile, blocks, blocks per SM, waves); then 10
+   batches of the rig under ``torch.profiler``: device time per batch by
+   part (fused kernel, remap, gray and the rest) and the idle share;
 8. split-phase SAD volume and argmin kernels vs their plain twins on the
    card, bit-exact, on the edge shapes and at 1080x1920 D=64 r=5; the
    argmin also on right-view volumes, which hold INT32_MAX;
@@ -86,6 +94,10 @@ EDGE_CASES = [  # (B, H, W, D, r): ragged tiles, odd D, r = 0, D = W, r = 6
     (1, 16, 257, 12, 4), (1, 24, 40, 7, 2), (1, 24, 40, 8, 6), (1, 30, 120, 63, 5),
     (1, 30, 120, 64, 5), (1, 33, 64, 64, 0), (1, 37, 300, 64, 5), (3, 70, 250, 33, 3),
 ]
+STRUCTURED_CASES = [  # (B, H, W, D, r): W = 128k + 1 and H = 32k + 1 leave a 1-wide tile and a 1-row tile
+    (3, 33, 257, 64, 5), (1, 65, 129, 129, 7), (1, 17, 385, 65, 1), (2, 40, 130, 63, 3),
+    (3, 33, 257, 63, 0), (1, 40, 130, 64, 8), (1, 65, 129, 129, 9),
+]
 KEY_RANGES = [  # (d_start, count, total)
     (0, 8, 8), (3, 5, 8), (5, 3, 16), (16, 16, 64), (48, 16, 64), (33, 31, 64), (0, 64, 64),
 ]
@@ -154,6 +166,55 @@ def shifted_pair(rng, dev, shape, shift: int):
     noise = rng.integers(-2, 3, shape)
     right = np.clip(np.roll(left, -shift, axis=1) + noise, 0, 255).astype(np.uint8)
     return torch.from_numpy(left).to(dev), torch.from_numpy(right).to(dev)
+
+
+def structured_pairs(rng, dev, shape):
+    """(kind, left, right) inputs on which a matcher's faults show: every d
+    ties (constant: the answer is 0), ties almost everywhere (two levels),
+    the largest SAD the radius allows (255 against 0), a known shift."""
+    def full(value):
+        return torch.full(shape, value, dtype=torch.uint8, device=dev)
+
+    def levels():
+        return torch.from_numpy(rng.integers(0, 2, shape, dtype=np.uint8)).to(dev)
+
+    yield "constant", full(77), full(77)
+    yield "two-level", levels(), levels()
+    yield "255-against-0", full(255), full(0)
+    yield ("shifted-pair", *shifted_pair(rng, dev, shape, 9))
+
+
+def profile_rig(rig, left_bgr, right_bgr, batches: int = 10) -> dict:
+    """Device time of ``rig.process_batch`` under ``torch.profiler``: per
+    batch by part, the busy time and the idle share of the window from the
+    first kernel's start to the last one's end."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    rig.process_batch(left_bgr, right_bgr)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(batches):
+            rig.process_batch(left_bgr, right_bgr)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    parts = {"fused_sad_wta": 0.0, "remap": 0.0, "gray_and_rest": 0.0}
+    for e in kernels:
+        us = e.time_range.end - e.time_range.start
+        if "strip_kernel" in e.name or "sad_wta_kernel" in e.name:
+            parts["fused_sad_wta"] += us
+        elif "remap" in e.name:
+            parts["remap"] += us
+        else:
+            parts["gray_and_rest"] += us
+    busy = sum(parts.values())
+    if not kernels or busy == 0:
+        return {"device_time_seen": False}
+    window = max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)
+    return {"device_time_seen": True, "batches": batches, "device_kernels": len(kernels),
+            "ms_per_batch_by_part": {k: v / batches / 1e3 for k, v in parts.items()},
+            "share_by_part": {k: v / busy for k, v in parts.items()},
+            "busy_ms": busy / 1e3, "window_ms": window / 1e3, "idle_share": 1 - busy / window}
 
 
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms, shape):
@@ -623,18 +684,37 @@ def main() -> int:
     def u8(shape):
         return torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
 
-    # 3. Kernel A vs its plain twin.
+    # 3. Kernel A vs its plain twin: both bodies, random and structured inputs.
     err_a = 0
-    for b, h, w, d, r in EDGE_CASES + [(1, 1080, 1920, 64, 5), (4, 1080, 1920, 64, 5)]:
-        left, right = u8((b, h, w)), u8((b, h, w))
+    bodies = {"strips": 0, "general": 0}
+
+    def check_a(left, right, d, r, what):
+        nonlocal err_a
         got = sad_wta.fused_block_matching_batched(left, right, d, r)
         want = sad_wta.fused_block_matching_reference(left, right, d, r)
         torch.cuda.synchronize()
         err = int((got - want).abs().max())
         err_a = max(err_a, err)
         if err != 0:
-            raise AssertionError(f"fused kernel differs from its twin at {(b, h, w, d, r)}: {err}")
-    log("3-fused-kernel-vs-twin", cases=len(EDGE_CASES) + 2, max_abs_err=err_a, ok=True)
+            raise AssertionError(
+                f"fused kernel differs from its twin at {(*left.shape, d, r)} ({what}): {err}")
+        bodies[sad_wta.kernel_body(d, r)] += 1
+        return got
+
+    for b, h, w, d, r in EDGE_CASES + [(1, 1080, 1920, 64, 5), (4, 1080, 1920, 64, 5)]:
+        check_a(u8((b, h, w)), u8((b, h, w)), d, r, "random")
+    structured = 0
+    for b, h, w, d, r in STRUCTURED_CASES:
+        for kind, left, right in structured_pairs(rng, dev, (b, h, w)):
+            got = check_a(left, right, d, r, kind)
+            if kind == "constant" and bool(got.any()):
+                raise AssertionError("constant images: every d ties, the answer is 0")
+            structured += 1
+    if not all(bodies.values()) or sad_wta.kernel_body(64, 5) != "strips":
+        raise AssertionError(f"phase 3 must cover both bodies, (64, 5) on strips: {bodies}")
+    log("3-fused-kernel-vs-twin", cases=len(EDGE_CASES) + 2 + structured,
+        structured_cases=structured, cases_by_body=bodies, body_of_64_5=sad_wta.kernel_body(64, 5),
+        max_abs_err=err_a, ok=True)
 
     # 4. Kernel B vs its plain twin, through a real-size rig's maps.
     size_hw, num_d, radius = (720, 1280), 64, 5
@@ -705,9 +785,11 @@ def main() -> int:
     p_a32 = cuda_ms(lambda: sad_wta.fused_block_matching_reference(*a32, 64, 5), reps=3)
     del a32
     log("7-time", kernel="sad_wta", shape=[1, 1080, 1920, 64, 5], ms_per_frame=t_a1,
-        plain_ms_per_frame=p_a1)
+        plain_ms_per_frame=p_a1, plan=sad_wta.launch_plan((1, 1080, 1920), 64, 5, dev))
     log("7-time", kernel="sad_wta", shape=[32, 1080, 1920, 64, 5], ms_per_frame=t_a32 / 32,
-        plain_ms_per_frame=p_a32 / 32)
+        plain_ms_per_frame=p_a32 / 32, plan=sad_wta.launch_plan((32, 1080, 1920), 64, 5, dev))
+    log("7-time", kernel="sad_wta", general_body_plan_at_r_8=sad_wta.launch_plan(
+        (1, 1080, 1920), 64, 8, dev))
     g1 = u8((1, *size_hw))
     g8 = u8((8, *size_hw))
     mx, my = rig.left_map_x, rig.left_map_y
@@ -724,6 +806,7 @@ def main() -> int:
     log("7-time", rig=[*size_hw, num_d, radius], batch=8, ms=t_rig, fps=8e3 / t_rig,
         plain_ms=t_plain_rig, plain_fps=8e3 / t_plain_rig, process_ms=t_one,
         process_fps=1e3 / t_one)
+    log("7-profile", rig=[*size_hw, num_d, radius], batch=8, **profile_rig(rig, lb, rb))
     del a1, g1, g8, lb, rb, pairs, singles, batch, triples
     torch.cuda.empty_cache()
 

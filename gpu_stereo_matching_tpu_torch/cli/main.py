@@ -5,9 +5,11 @@ in, a scaled (or, with ``--colorize``, turbo-colored) disparity PNG out.
 Without ``--fused`` the unfused path runs, with the ``--lr-check`` and
 ``--median-radius`` post-filters; ``--fused`` runs the fused SAD + WTA
 kernel (its plain twin on ``--device cpu``) and, as in the JAX package,
-ignores the post-filters.
+ignores the post-filters. It runs on the card (``--device cuda``, the
+default) and raises where there is none; ``--device cpu`` runs the plain
+torch versions.
 
-Run: ``python -m gpu_stereo_matching_tpu_torch.cli.main bm L.png R.png out.png --lr-check --median-radius 3 --device cuda``
+Run: ``python -m gpu_stereo_matching_tpu_torch.cli.main bm L.png R.png out.png --lr-check --median-radius 3``
 """
 
 from __future__ import annotations
@@ -72,7 +74,7 @@ def build_parser() -> argparse.ArgumentParser:
     bm.add_argument("--lr-check", action="store_true", help="left-right consistency")
     bm.add_argument("--median-radius", type=int, default=0)
     bm.add_argument("--colorize", action="store_true", help="turbo-colormap output")
-    bm.add_argument("--device", default="cpu", help="cpu, cuda or cuda:N")
+    bm.add_argument("--device", default="cuda", help="cuda (the default), cuda:N or cpu")
     bm.set_defaults(fn=_cmd_bm)
     return p
 

@@ -34,6 +34,7 @@ _I = ctypes.c_int
 # C entry name -> argument types; every entry returns a cudaError_t as int.
 _SIGNATURES = {
     "gsm_sad_wta_u8": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "gsm_sad_wta_plan": [_I, _I, _I, _I, _I, _P],
     "gsm_sad_key_u8": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "gsm_remap_bilinear_u8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gsm_sad_volume_u8": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -111,6 +112,8 @@ def load_library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        lib.gsm_sad_wta_body.argtypes = [_I, _I]
+        lib.gsm_sad_wta_body.restype = _I
         lib.gsm_error_string.argtypes = [ctypes.c_int]
         lib.gsm_error_string.restype = ctypes.c_char_p
         _library = lib

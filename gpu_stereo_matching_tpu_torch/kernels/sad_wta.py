@@ -12,10 +12,15 @@ there instead, so the two can pick different disparities within ``r`` rows
 of the border; each side here is held to its own JAX counterpart.
 
 A tensor on the CPU runs the plain twin; a CUDA tensor launches the kernel
-or raises.
+or raises. The whole-range kernel has two hand-written bodies, chosen in C
+from ``(num_disparities, radius)`` alone: the strip body (radius 1..7) and
+the general body (every other radius up to 112); :func:`kernel_body` and
+:func:`launch_plan` say which one a shape takes and how it is launched.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -28,7 +33,8 @@ from gpu_stereo_matching_tpu_torch.ops.aggregate import box_filter_sum
 LAUNCHES = 0
 KEY_LAUNCHES = 0
 
-# Both kernels' blocks are 128 or 256 threads wide, 2r + 32 of them at least.
+# The general body's and the key kernel's blocks are 128 or 256 threads wide,
+# 2r + 32 of them at least.
 MAX_RADIUS = 112
 
 
@@ -83,6 +89,32 @@ def _launch(left: torch.Tensor, right: torch.Tensor, num_disparities: int,
     _build.check(lib, err, "gsm_sad_wta_u8")
     LAUNCHES += 1
     return out
+
+
+BODIES = ("general", "strips")
+_PLAN_FIELDS = ("tile_rows", "tile_cols", "threads", "blocks", "blocks_per_sm", "sms")
+
+
+def kernel_body(num_disparities: int, radius: int) -> str:
+    """Which body of the CUDA kernel ``(num_disparities, radius)`` runs:
+    ``"strips"`` or ``"general"``. Builds the library; needs no card."""
+    return BODIES[_build.load_library().gsm_sad_wta_body(num_disparities, radius)]
+
+
+def launch_plan(shape, num_disparities: int, radius: int, device="cuda") -> dict:
+    """How the kernel launches for a ``(B, H, W)`` batch on ``device``: its
+    body, tile, threads per block, blocks, and the blocks an SM holds at once
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) beside the SM count,
+    from which ``waves`` = blocks / (blocks_per_sm * sms)."""
+    lib = _build.load_library()
+    b, h, w = shape
+    fields = (ctypes.c_int * (1 + len(_PLAN_FIELDS)))()
+    with torch.cuda.device(device):
+        err = lib.gsm_sad_wta_plan(b, h, w, num_disparities, radius, fields)
+    _build.check(lib, err, "gsm_sad_wta_plan")
+    plan = {"body": BODIES[fields[0]], **dict(zip(_PLAN_FIELDS, fields[1:]))}
+    plan["waves"] = plan["blocks"] / (plan["blocks_per_sm"] * plan["sms"])
+    return plan
 
 
 def fused_block_matching(

@@ -42,7 +42,9 @@ class StereoRig(nn.Module):
     ``fused`` is the JAX rig's ``use_pallas``: True runs the fused kernel,
     which, as in JAX, ignores ``config.lr_consistency`` and
     ``config.median_radius``; False runs the unfused path, which honours
-    them.
+    them. The rig lives on ``device``: the card by default (it raises where
+    there is none), the CPU and the plain torch versions with
+    ``device="cpu"``.
     """
 
     def __init__(
@@ -51,7 +53,7 @@ class StereoRig(nn.Module):
         image_size_hw: Tuple[int, int],
         config: BlockMatchingConfig = BlockMatchingConfig(),
         cache: Optional[ArtifactCache] = None,
-        device: str | torch.device = "cpu",
+        device: str | torch.device = "cuda",
         fused: bool = True,
     ) -> None:
         super().__init__()
@@ -120,7 +122,7 @@ def rig_from_yaml(
     image_size_hw: Tuple[int, int],
     config: BlockMatchingConfig = BlockMatchingConfig(),
     scale_intrinsics_from: Optional[Tuple[int, int]] = None,
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
 ) -> StereoRig:
     """Build a rig from an OpenCV calibration YAML.
 

@@ -47,8 +47,25 @@ def test_bm_bgr_input(tmp_path):
     Image.fromarray(np.roll(img, -2, axis=1)).save(tmp_path / "r.png")
     out = tmp_path / "d.png"
     assert main(["bm", str(tmp_path / "l.png"), str(tmp_path / "r.png"), str(out),
-                 "--disparities", "4", "--radius", "1", "--fused"]) == 0
+                 "--disparities", "4", "--radius", "1", "--fused", "--device", "cpu"]) == 0
     assert np.asarray(Image.open(out)).shape == (16, 24)
+
+
+def test_bm_defaults_to_the_card(tmp_path, gray_pair):
+    """Without ``--device`` the command runs on the card; without a card it
+    raises, it does not fall back."""
+    from gpu_stereo_matching_tpu_torch.cli.main import build_parser
+
+    left, right, lp, rp = gray_pair
+    out = tmp_path / "d.png"
+    argv = ["bm", lp, rp, str(out), "--gray", "--disparities", "8", "--radius", "2"]
+    assert build_parser().parse_args(argv).device == "cuda"
+    if torch.cuda.is_available():
+        assert main(argv) == 0
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main(argv)
+        assert not out.exists()
 
 
 def test_resolve_device():

@@ -153,7 +153,7 @@ def test_port_rig_takes_either_package_calibration():
         return dataclasses.replace(calib, left_intrinsics=k1, right_intrinsics=k2)
 
     cfg = tconfig.BlockMatchingConfig(num_disparities=4, sad_radius=1)
-    ours = StereoRig(small(tyaml), (36, 64), cfg)
-    theirs = StereoRig(small(jyaml), (36, 64), cfg)
+    ours = StereoRig(small(tyaml), (36, 64), cfg, device="cpu")
+    theirs = StereoRig(small(jyaml), (36, 64), cfg, device="cpu")
     for name in MAP_NAMES:
         assert torch.equal(getattr(ours, name), getattr(theirs, name))

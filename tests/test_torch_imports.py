@@ -36,6 +36,7 @@ PORT_MODULES = [
     "gpu_stereo_matching_tpu_torch.parallel.halo",
     "gpu_stereo_matching_tpu_torch.parallel.stereo",
     "gpu_stereo_matching_tpu_torch.parallel.launch",
+    "gpu_stereo_matching_tpu_torch.bench.fused_kernel",
     "gpu_stereo_matching_tpu_torch.bench.scaling",
 ]
 

@@ -192,7 +192,7 @@ def test_rig_unfused_branch_matches_jax_rig(tmp_path, tiny_calib, cfg):
     ``convert.load_maps``, against ``StereoRig(use_pallas=False)``."""
     size_hw = (24, 32)
     jrig = JaxRig(tiny_calib, size_hw, cfg, cache=JaxCache(str(tmp_path)), use_pallas=False)
-    rig = convert.load_maps(StereoRig(tiny_calib, size_hw, cfg, fused=False),
+    rig = convert.load_maps(StereoRig(tiny_calib, size_hw, cfg, device="cpu", fused=False),
                             [np.asarray(m) for m in jrig._maps])
     lb, rb = _u8(11, (3, *size_hw, 3)), _u8(12, (3, *size_hw, 3))
     want = np.asarray(jrig.process_batch(jnp.asarray(lb), jnp.asarray(rb)))
@@ -209,9 +209,9 @@ def test_fused_rig_ignores_post_filters(tiny_calib):
     plain = BlockMatchingConfig(num_disparities=8, sad_radius=2)
     post = BlockMatchingConfig(num_disparities=8, sad_radius=2, lr_consistency=True, median_radius=3)
     lb, rb = _u8(13, (2, *size_hw, 3)), _u8(14, (2, *size_hw, 3))
-    a = StereoRig(tiny_calib, size_hw, post).process_batch(lb, rb)
-    b = StereoRig(tiny_calib, size_hw, plain).process_batch(lb, rb)
-    c = StereoRig(tiny_calib, size_hw, post, fused=False).process_batch(lb, rb)
+    a = StereoRig(tiny_calib, size_hw, post, device="cpu").process_batch(lb, rb)
+    b = StereoRig(tiny_calib, size_hw, plain, device="cpu").process_batch(lb, rb)
+    c = StereoRig(tiny_calib, size_hw, post, device="cpu", fused=False).process_batch(lb, rb)
     assert torch.equal(a, b) and not torch.equal(a, c)
 
 
@@ -249,7 +249,7 @@ def test_cli_colorize(tmp_path, gray_pair):
     left, right, lp, rp = gray_pair
     out = tmp_path / "c.png"
     assert cli_main(["bm", lp, rp, str(out), "--gray", "--disparities", "8", "--radius", "2",
-                     "--lr-check", "--median-radius", "1", "--colorize"]) == 0
+                     "--lr-check", "--median-radius", "1", "--colorize", "--device", "cpu"]) == 0
     cfg = BlockMatchingConfig(num_disparities=8, sad_radius=2, lr_consistency=True, median_radius=1)
     disp = tbm.block_matching_pipeline(_t(left), _t(right), cfg).numpy()
     img = np.asarray(Image.open(out))

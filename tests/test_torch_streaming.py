@@ -49,7 +49,7 @@ def _jax_pallas_frame(jrig, left_bgr, right_bgr, cfg):
 def test_rig_matches_jax_pallas_pipeline(tmp_path, tiny_calib, size_hw, num_d, radius):
     cfg = BlockMatchingConfig(num_disparities=num_d, sad_radius=radius)
     jrig = JaxRig(tiny_calib, size_hw, cfg, cache=JaxCache(str(tmp_path)), use_pallas=True)
-    rig = convert.load_maps(StereoRig(tiny_calib, size_hw, cfg), [np.asarray(m) for m in jrig._maps])
+    rig = convert.load_maps(StereoRig(tiny_calib, size_hw, cfg, device="cpu"), [np.asarray(m) for m in jrig._maps])
     rng = np.random.default_rng(11)
     lb = rng.integers(0, 256, (2, *size_hw, 3), dtype=np.uint8)
     rb = rng.integers(0, 256, (2, *size_hw, 3), dtype=np.uint8)
@@ -68,21 +68,22 @@ def test_convert_carries_the_maps(tmp_path, tiny_calib):
     jrig = JaxRig(tiny_calib, size_hw, cfg, cache=JaxCache(str(tmp_path)), use_pallas=False)
     maps = [np.asarray(m) for m in jrig._maps]
     shifted = [m + np.float32(0.25) for m in maps]
-    rig = convert.load_maps(StereoRig(tiny_calib, size_hw, cfg), shifted)
+    rig = convert.load_maps(StereoRig(tiny_calib, size_hw, cfg, device="cpu"), shifted)
     for name, m in zip(MAP_NAMES, shifted):
         np.testing.assert_array_equal(getattr(rig, name).numpy(), m)
     assert set(rig.state_dict()) == set(MAP_NAMES)
     # Loading in place leaves the map cache of a second rig untouched.
     cache = ArtifactCache()
-    a = StereoRig(tiny_calib, size_hw, cfg, cache=cache)
+    a = StereoRig(tiny_calib, size_hw, cfg, cache=cache, device="cpu")
     convert.load_maps(a, shifted)
-    b = StereoRig(tiny_calib, size_hw, cfg, cache=cache)
+    b = StereoRig(tiny_calib, size_hw, cfg, cache=cache, device="cpu")
     np.testing.assert_array_equal(b.left_map_x.numpy(), maps[0])
 
 
 def test_convert_rejects_bad_maps(tiny_calib):
     size_hw = (24, 32)
-    rig = StereoRig(tiny_calib, size_hw, BlockMatchingConfig(num_disparities=4, sad_radius=1))
+    rig = StereoRig(tiny_calib, size_hw, BlockMatchingConfig(num_disparities=4, sad_radius=1),
+                    device="cpu")
     good = np.zeros(size_hw, np.float32)
     with pytest.raises(ValueError, match="expected 4 maps"):
         convert.load_maps(rig, [good] * 3)
@@ -95,10 +96,10 @@ def test_convert_rejects_bad_maps(tiny_calib):
 def test_map_cache_directory_reused(tmp_path, tiny_calib):
     cfg = BlockMatchingConfig(num_disparities=4, sad_radius=1)
     cache = ArtifactCache(str(tmp_path))
-    StereoRig(tiny_calib, (16, 24), cfg, cache=cache)
+    StereoRig(tiny_calib, (16, 24), cfg, cache=cache, device="cpu")
     files = sorted(p.name for p in tmp_path.glob("*.pkl"))
     assert len(files) == 1
-    StereoRig(tiny_calib, (16, 24), cfg, cache=ArtifactCache(str(tmp_path)))
+    StereoRig(tiny_calib, (16, 24), cfg, cache=ArtifactCache(str(tmp_path)), device="cpu")
     assert sorted(p.name for p in tmp_path.glob("*.pkl")) == files
 
 
@@ -122,7 +123,8 @@ def test_rig_from_yaml_scales_intrinsics(tmp_path, tiny_calib):
     path = tmp_path / "calib.yml"
     save_opencv_stereo_yaml(path, tiny_calib)
     cfg = BlockMatchingConfig(num_disparities=4, sad_radius=1)
-    rig = rig_from_yaml(str(path), (48, 64), cfg, scale_intrinsics_from=(24, 32))
+    rig = rig_from_yaml(str(path), (48, 64), cfg, scale_intrinsics_from=(24, 32),
+                        device="cpu")
     jrig = JaxRig(tiny_calib, (24, 32), cfg, cache=JaxCache(str(tmp_path)), use_pallas=False)
     assert tuple(rig.left_map_x.shape) == (48, 64)
     # Doubled intrinsics at doubled size map pixel centres to about twice
@@ -133,7 +135,8 @@ def test_rig_from_yaml_scales_intrinsics(tmp_path, tiny_calib):
 
 
 def test_rig_rejects_wrong_frames(tiny_calib):
-    rig = StereoRig(tiny_calib, (16, 24), BlockMatchingConfig(num_disparities=4, sad_radius=1))
+    rig = StereoRig(tiny_calib, (16, 24), BlockMatchingConfig(num_disparities=4, sad_radius=1),
+                    device="cpu")
     frame = np.zeros((16, 24, 3), np.uint8)
     with pytest.raises(ValueError, match="BGR frames"):
         rig.process(frame[:, :20], frame[:, :20])
@@ -141,3 +144,26 @@ def test_rig_rejects_wrong_frames(tiny_calib):
         rig.process_batch(frame, frame)
     with pytest.raises(ValueError, match="BGR frames"):
         rig.process(frame.astype(np.float32), frame.astype(np.float32))
+
+
+def test_rig_defaults_to_the_card(tmp_path, tiny_calib):
+    """``StereoRig`` and ``rig_from_yaml`` run on the card unless the caller
+    names the CPU; without a card they raise, they do not fall back."""
+    cfg = BlockMatchingConfig(num_disparities=4, sad_radius=1)
+    path = tmp_path / "calib.yml"
+    save_opencv_stereo_yaml(path, tiny_calib)
+    if torch.cuda.is_available():
+        assert StereoRig(tiny_calib, (16, 24), cfg).device.type == "cuda"
+        assert rig_from_yaml(str(path), (16, 24), cfg).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            StereoRig(tiny_calib, (16, 24), cfg)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            rig_from_yaml(str(path), (16, 24), cfg)
+
+
+@pytest.mark.parametrize("fn", [StereoRig.__init__, rig_from_yaml])
+def test_rig_device_default_is_cuda(fn):
+    import inspect
+
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
