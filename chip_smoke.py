@@ -16,13 +16,14 @@ Phases, each printing its own line:
 4. remap kernel vs its plain twin at 720x1280 through a rig's maps;
 5. gray conversion on the card vs on the CPU over all 2**24 BGR triples;
 6. the main path: a 720x1280, D=64, r=5 StereoRig from a synthetic
-   calibration runs ``process`` on 3 pairs and ``process_batch`` on 8;
-   results bit-exact against the plain path on the card, and both kernels'
-   launch counters must have risen during this phase;
+   calibration runs ``process`` on 3 pairs (with a ``StageTimer``, which
+   must hold one fenced ``"frame"`` span per pair) and ``process_batch`` on
+   8; results bit-exact against the plain path on the card, and both
+   kernels' launch counters must have risen during this phase;
 7. CUDA-event timings (warmed, median of several runs) of each kernel beside
    its plain twin and of the rig, printed as JSON lines, with the fused
    kernel's launch plan (body, tile, blocks, blocks per SM, waves); then 10
-   batches of the rig under ``torch.profiler``: device time per batch by
+   batches of the rig under ``torch.profiler``: device time per call by
    part (fused kernel, remap, gray and the rest) and the idle share;
 8. split-phase SAD volume and argmin kernels vs their plain twins on the
    card, bit-exact, on the edge shapes and at 1080x1920 D=64 r=5; the
@@ -42,9 +43,14 @@ Phases, each printing its own line:
    by stage;
 12. the partial-range key kernel vs its plain twin, bit-exact: edge shapes
    (ragged tiles, B = 1 and 3) with ranges that start at 0, at an odd d and
-   end at the total, r in {0, 1, 5, 7}, and the four ranges of D=64 at
-   1080x1920; then, for D=64 split into 1, 2, 4 and 8 ranges, the minimum
-   of the ranges' keys mod 64 equals the fused kernel at every pixel;
+   end at the total, r in {0, 1, 5, 7}; the structured inputs of phase 3 at
+   its ragged-tile shapes over the same ranges and, at D = 65 and 129, over
+   odd counts from odd and even starts; and the four ranges of D=64 at
+   1080x1920. The line counts the cases each of the kernel's two bodies ran,
+   and the phase fails if a body ran none or if (count, total, r) = (16, 64,
+   5) or (64, 64, 5) does not take the strip body. Then, for D=64 split into
+   1, 2, 4 and 8 ranges, the minimum of the ranges' keys mod 64 equals the
+   fused kernel at every pixel;
 13. the sharded step at full width (1080x1920, D=64, r=5, B=8) on virtual
    meshes on the card of shapes (1,1,1), (1,1,4), (1,4,1), (2,2,2), (1,2,4):
    each equals the fused kernel on the whole frames and the same step
@@ -55,11 +61,14 @@ Phases, each printing its own line:
    pixels that differ from the single-device bm+ pipeline;
 15. ``parallel/launch.py::main`` in-process (``--data 2 --space 2 --disp 2
    --frames 8 --device cuda``), then timings: the key kernel beside the
-   fused kernel and its twin, the sharded step per frame on each mesh of
-   phase 13 beside the fused kernel at B=8, and the step by part on
-   (1,1,4) and (1,4,1). On one card a virtual mesh measures what sharding
-   costs (halo rows computed twice, one launch per disparity part plus the
-   minimum, copies), not what it gains.
+   fused kernel and its twin at B=1 and per frame at B=8, its launch plan
+   for the slabs each mesh of phase 13 hands it, the sharded step per frame
+   on each of those meshes beside the fused kernel at B=8, and the step by
+   part on (1,1,4) and (1,4,1); and 5 steps on (1,1,4) and (2,2,2) under
+   ``torch.profiler``: device time per step by part and the idle share. On
+   one card a virtual mesh measures what sharding costs (halo rows computed
+   twice, one launch per disparity part plus the minimum, copies), not what
+   it gains.
 
 Each kernel's entry of the summary line carries its bound: the least time
 the card could take, the larger of its bytes (each input read once, each
@@ -101,6 +110,9 @@ STRUCTURED_CASES = [  # (B, H, W, D, r): W = 128k + 1 and H = 32k + 1 leave a 1-
 KEY_RANGES = [  # (d_start, count, total)
     (0, 8, 8), (3, 5, 8), (5, 3, 16), (16, 16, 64), (48, 16, 64), (33, 31, 64), (0, 64, 64),
 ]
+ODD_KEY_RANGES = {  # total -> (d_start, count): odd counts from odd and even starts
+    65: [(17, 15), (33, 31), (48, 17)], 129: [(17, 15), (97, 31), (112, 17)],
+}
 KEY_SHAPES = [(1, 21, 33), (1, 9, 130), (3, 70, 250), (1, 37, 300), (1, 16, 257), (3, 40, 64)]
 MESH_SHAPES = [(1, 1, 1), (1, 1, 4), (1, 4, 1), (2, 2, 2), (1, 2, 4)]
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, data sheet
@@ -184,37 +196,47 @@ def structured_pairs(rng, dev, shape):
     yield ("shifted-pair", *shifted_pair(rng, dev, shape, 9))
 
 
-def profile_rig(rig, left_bgr, right_bgr, batches: int = 10) -> dict:
-    """Device time of ``rig.process_batch`` under ``torch.profiler``: per
-    batch by part, the busy time and the idle share of the window from the
-    first kernel's start to the last one's end."""
+def device_profile(run, repeats: int, part_of) -> dict:
+    """Device time of ``repeats`` calls of ``run()`` under ``torch.profiler``:
+    per call by part (``part_of`` maps a device kernel's name to its part),
+    the busy time and the idle share of the window from the first kernel's
+    start to the last one's end."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    rig.process_batch(left_bgr, right_bgr)
+    run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(batches):
-            rig.process_batch(left_bgr, right_bgr)
+        for _ in range(repeats):
+            run()
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    parts = {"fused_sad_wta": 0.0, "remap": 0.0, "gray_and_rest": 0.0}
+    parts = {}
     for e in kernels:
-        us = e.time_range.end - e.time_range.start
-        if "strip_kernel" in e.name or "sad_wta_kernel" in e.name:
-            parts["fused_sad_wta"] += us
-        elif "remap" in e.name:
-            parts["remap"] += us
-        else:
-            parts["gray_and_rest"] += us
+        part = part_of(e.name)
+        parts[part] = parts.get(part, 0.0) + e.time_range.end - e.time_range.start
     busy = sum(parts.values())
     if not kernels or busy == 0:
         return {"device_time_seen": False}
     window = max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)
-    return {"device_time_seen": True, "batches": batches, "device_kernels": len(kernels),
-            "ms_per_batch_by_part": {k: v / batches / 1e3 for k, v in parts.items()},
+    return {"device_time_seen": True, "calls": repeats, "device_kernels": len(kernels),
+            "ms_per_call_by_part": {k: v / repeats / 1e3 for k, v in parts.items()},
             "share_by_part": {k: v / busy for k, v in parts.items()},
             "busy_ms": busy / 1e3, "window_ms": window / 1e3, "idle_share": 1 - busy / window}
+
+
+def rig_part(name: str) -> str:
+    """The part of a rig batch that a device kernel belongs to."""
+    if "strip_kernel" in name or "sad_wta_kernel" in name:
+        return "fused_sad_wta"
+    return "remap" if "remap" in name else "gray_and_rest"
+
+
+def step_part(name: str) -> str:
+    """The part of a sharded step that a device kernel belongs to."""
+    if "strip_kernel" in name or "sad_key_kernel" in name:
+        return "key_kernel"
+    return "copies_minimum_and_rest"
 
 
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms, shape):
@@ -482,18 +504,38 @@ def run_sharded_phases(dev, u8, t_fused_b1: float) -> dict:
         if got.shape != want.shape or got.dtype != want.dtype or not torch.equal(got, want):
             raise AssertionError(f"{what}: results differ")
 
-    # 12. Kernel C vs its twin, and the identity that ties it to kernel A.
-    cases = 0
+    # 12. Kernel C vs its twin (both bodies, random and structured inputs),
+    # and the identity that ties it to kernel A.
+    cases = structured = 0
+    bodies = {"strips": 0, "general": 0}
+
+    def check_c(left, right, d_start, count, total, r, what):
+        nonlocal cases
+        same(key(left, right, d_start, count, total, r),
+             key_twin(left, right, d_start, count, total, r),
+             f"key kernel {tuple(left.shape)} {(d_start, count, total)} r={r} ({what})")
+        bodies[sad_wta.key_kernel_body(count, total, r)] += 1
+        cases += 1
+
     for shape in KEY_SHAPES:
         for d_start, count, total in KEY_RANGES:
             if total > shape[-1]:
                 continue
             for r in (0, 1, 5, 7):
-                left, right = u8(shape), u8(shape)
-                same(key(left, right, d_start, count, total, r),
-                     key_twin(left, right, d_start, count, total, r),
-                     f"key kernel {shape} {(d_start, count, total)} r={r}")
-                cases += 1
+                check_c(u8(shape), u8(shape), d_start, count, total, r, "random")
+    rng = np.random.default_rng(SEED + 3)
+    for b, h, w, d, r in STRUCTURED_CASES:
+        ranges = [rg for rg in KEY_RANGES if rg[2] <= w]
+        ranges += [(d_start, count, d) for d_start, count in ODD_KEY_RANGES.get(d, [])]
+        for kind, left, right in structured_pairs(rng, dev, (b, h, w)):
+            for d_start, count, total in ranges:
+                check_c(left, right, d_start, count, total, r, kind)
+                structured += 1
+    on_strips = [sad_wta.key_kernel_body(count, 64, 5) for count in (16, 64)]
+    if not all(bodies.values()) or on_strips != ["strips", "strips"]:
+        raise AssertionError(
+            f"phase 12 must cover both bodies, (16, 64, 5) and (64, 64, 5) on strips: "
+            f"{bodies}, {on_strips}")
     left2, right2 = u8((2, *hw)), u8((2, *hw))
     fused2 = sad_wta.fused_block_matching_batched(left2, right2, num_d, radius)
     splits = []
@@ -505,12 +547,15 @@ def run_sharded_phases(dev, u8, t_fused_b1: float) -> dict:
             if parts == 4:
                 same(part, key_twin(left2, right2, k * count, count, num_d, radius),
                      f"key kernel at 1080p, range {k} of 4")
+                bodies[sad_wta.key_kernel_body(count, num_d, radius)] += 1
                 cases += 1
             keys = part if keys is None else torch.minimum(keys, part)
         same(keys % num_d, fused2, f"minimum over {parts} ranges vs the fused kernel")
         splits.append(parts)
     del left2, right2, fused2, keys, part
-    log("12-key-kernel-vs-twin", cases=cases, max_abs_err=0, splits_equal_fused=splits, ok=True)
+    log("12-key-kernel-vs-twin", cases=cases, structured_cases=structured, cases_by_body=bodies,
+        body_of_16_64_5=on_strips[0], body_of_64_64_5=on_strips[1], max_abs_err=0,
+        splits_equal_fused=splits, ok=True)
 
     # 13. The sharded step at full width on virtual meshes on the card.
     cfg = BlockMatchingConfig(num_disparities=num_d, sad_radius=radius)
@@ -592,16 +637,37 @@ def run_sharded_phases(dev, u8, t_fused_b1: float) -> dict:
     t_c16 = cuda_ms(lambda: key(l1, r1, 16, 16, 64, 5))
     p_c16 = cuda_ms(lambda: key_twin(l1, r1, 16, 16, 64, 5), reps=3)
     log("15-time", kernel="sad_wta_key", shape=[1, *hw, 5], range=[0, 64, 64], ms=t_c,
-        plain_ms=p_c, fused_kernel_ms=t_a, fused_kernel_ms_phase_7=t_fused_b1)
+        plain_ms=p_c, fused_kernel_ms=t_a, fused_kernel_ms_phase_7=t_fused_b1,
+        plan=sad_wta.key_launch_plan((1, *hw), 64, 64, 5, dev))
     log("15-time", kernel="sad_wta_key", shape=[1, *hw, 5], range=[16, 16, 64], ms=t_c16,
-        plain_ms=p_c16)
+        plain_ms=p_c16, plan=sad_wta.key_launch_plan((1, *hw), 16, 64, 5, dev))
     t_a8 = cuda_ms(lambda: sad_wta.fused_block_matching_batched(left8, right8, 64, 5))
+    t_c8 = cuda_ms(lambda: key(left8, right8, 0, 64, 64, 5))
+    t_c8_16 = cuda_ms(lambda: key(left8, right8, 16, 16, 64, 5))
+    log("15-time", kernel="sad_wta_key", shape=[8, *hw, 5],
+        ms_per_frame={"[0, 64, 64]": t_c8 / 8, "[16, 16, 64]": t_c8_16 / 8},
+        fused_kernel_ms_per_frame=t_a8 / 8)
+    # The slabs a step hands the kernel: the mesh's share of the 8 frames, of
+    # the rows (with r halo rows above and below) and of the disparities.
+    slab_plans = {}
+    for n_data, n_space, n_disp in MESH_SHAPES:
+        slab = (left8.shape[0] // n_data, hw[0] // n_space + 2 * radius, hw[1])
+        slab_plans[str((n_data, n_space, n_disp))] = {
+            "slab": list(slab), "count": num_d // n_disp,
+            **sad_wta.key_launch_plan(slab, num_d // n_disp, num_d, radius, dev)}
+    log("15-time", kernel="sad_wta_key", launch_plans_of_the_sharded_steps=slab_plans)
     per_frame = {str(shape): cuda_ms(lambda: step(sl, sr)) / 8
                  for shape, (step, sl, sr) in steps.items()}
     log("15-time", path="sharded step, virtual mesh on one card", shape=[8, *hw, num_d, radius],
         ms_per_frame=per_frame, fused_kernel_ms_per_frame=t_a8 / 8,
         note="what sharding costs on one card (halo rows computed twice, one launch per "
              "disparity part plus the minimum, copies), not what it gains")
+
+    # Where a step's time goes between the card and the host that enqueues it.
+    for shape in [(1, 1, 4), (2, 2, 2)]:
+        step, sl, sr = steps[shape]
+        log("15-profile", path="sharded step", mesh=list(shape), batch=8,
+            **device_profile(lambda: step(sl, sr), 5, step_part))
 
     def crop(x):
         return x[..., radius:-radius, :]
@@ -663,6 +729,7 @@ def main() -> int:
     from gpu_stereo_matching_tpu_torch.models.streaming import StereoRig
     from gpu_stereo_matching_tpu_torch.ops.color import gray_blockmatching_bgr, gray_rec601_bgr
     from gpu_stereo_matching_tpu_torch.ops.remap import remap_bilinear_u8
+    from gpu_stereo_matching_tpu_torch.utils.profiling import StageTimer
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -751,8 +818,11 @@ def main() -> int:
     torch.cuda.synchronize()
     sad_wta.LAUNCHES = 0
     remap.LAUNCHES = 0
-    singles = [rig.process(l, r) for l, r in pairs]
+    timer = StageTimer()
+    singles = [rig.process(l, r, timer=timer) for l, r in pairs]
     launches = {"sad_wta_single": sad_wta.LAUNCHES}
+    if [s.name for s in timer.spans] != ["frame"] * 3:
+        raise AssertionError(f"rig.process recorded {timer.spans}, not one frame span per pair")
     batch = rig.process_batch(lb, rb)
     torch.cuda.synchronize()
     launches.update(sad_wta_batched=sad_wta.LAUNCHES - launches["sad_wta_single"],
@@ -774,7 +844,7 @@ def main() -> int:
         raise AssertionError("disparities outside [0, D)")
     torch.cuda.synchronize()
     log("6-main-path", rig=[*size_hw, num_d, radius], process_pairs=3, batch=8,
-        launches=launches, ok=True)
+        launches=launches, timer_frame_wait_ms=[s.seconds * 1e3 for s in timer.spans], ok=True)
 
     # 7. Timings.
     a1 = (u8((1, 1080, 1920)), u8((1, 1080, 1920)))
@@ -806,7 +876,8 @@ def main() -> int:
     log("7-time", rig=[*size_hw, num_d, radius], batch=8, ms=t_rig, fps=8e3 / t_rig,
         plain_ms=t_plain_rig, plain_fps=8e3 / t_plain_rig, process_ms=t_one,
         process_fps=1e3 / t_one)
-    log("7-profile", rig=[*size_hw, num_d, radius], batch=8, **profile_rig(rig, lb, rb))
+    log("7-profile", rig=[*size_hw, num_d, radius], batch=8,
+        **device_profile(lambda: rig.process_batch(lb, rb), 10, rig_part))
     del a1, g1, g8, lb, rb, pairs, singles, batch, triples
     torch.cuda.empty_cache()
 

@@ -8,6 +8,8 @@ gives them. There is no CPU mode: without a card the run raises.
 
 Run: ``python -m gpu_stereo_matching_tpu_torch.bench.fused_kernel``
 (defaults: 1080x1920 at B=1 and B=32, 720x1280 at B=1 and B=8, D=64, r=5).
+With ``--key d_start,count,total`` it times the partial-range key kernel
+over that range instead (``--disparities`` is then not read).
 To compare two trees, run each tree's module in turns on one card.
 """
 
@@ -57,6 +59,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--shapes", nargs="+", default=list(DEFAULT_SHAPES), help="BxHxW")
     p.add_argument("--disparities", type=int, default=64)
+    p.add_argument("--key", metavar="D_START,COUNT,TOTAL",
+                   help="time the key kernel over this range, not the whole-range kernel")
     p.add_argument("--radius", type=int, default=5)
     p.add_argument("--reps", type=int, default=7)
     p.add_argument("--seed", type=int, default=0)
@@ -71,16 +75,26 @@ def main(argv=None) -> int:
         shape = tuple(int(n) for n in spec.split("x"))
         left = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
         right = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
-        run = lambda: sad_wta.fused_block_matching_batched(  # noqa: E731
-            left, right, args.disparities, args.radius)
-        want = sad_wta.fused_block_matching_reference(left[0], right[0], args.disparities,
-                                                      args.radius)
+        if args.key:
+            d_start, count, total = (int(n) for n in args.key.split(","))
+            name, what = "fused_block_matching_key", {"range": [d_start, count, total]}
+            run = lambda: sad_wta.fused_block_matching_key(  # noqa: E731
+                left, right, d_start, count, total, args.radius)
+            want = sad_wta.fused_block_matching_key_reference(
+                left[0], right[0], d_start, count, total, args.radius)
+            plan = sad_wta.key_launch_plan(shape, count, total, args.radius, dev)
+        else:
+            name, what = "fused_block_matching_batched", {"disparities": args.disparities}
+            run = lambda: sad_wta.fused_block_matching_batched(  # noqa: E731
+                left, right, args.disparities, args.radius)
+            want = sad_wta.fused_block_matching_reference(left[0], right[0], args.disparities,
+                                                          args.radius)
+            plan = sad_wta.launch_plan(shape, args.disparities, args.radius, dev)
         equals_twin = torch.equal(run()[0], want)
         ms = cuda_ms(run, args.reps)
         print(json.dumps({
-            "kernel": "fused_block_matching_batched", "shape": list(shape),
-            "disparities": args.disparities, "radius": args.radius,
-            "plan": sad_wta.launch_plan(shape, args.disparities, args.radius, dev),
+            "kernel": name, "shape": list(shape), **what, "radius": args.radius,
+            "plan": plan,
             "equals_twin_on_frame_0": equals_twin, "ms_per_frame": ms / shape[0],
             "card": smi,
         }), flush=True)

@@ -3,7 +3,8 @@
 All ``csrc/*.cu`` files compile into one shared library with a plain C
 interface, at first use, into ``kernels/_build/`` (git-ignored): one
 ``nvcc -c`` per source, all started together, then one link. The file
-name carries a hash of the sources and flags, so an edited source rebuilds.
+name carries a hash of the sources, the headers they share (``csrc/*.cuh``)
+and the flags, so an edited source or header rebuilds.
 The library is loaded with :mod:`ctypes`; each wrapper passes pointers and
 the stream as ``c_void_p``. There is no fallback: without ``nvcc``, or when
 the build fails, :func:`load_library` raises.
@@ -36,6 +37,7 @@ _SIGNATURES = {
     "gsm_sad_wta_u8": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gsm_sad_wta_plan": [_I, _I, _I, _I, _I, _P],
     "gsm_sad_key_u8": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "gsm_sad_key_plan": [_I, _I, _I, _I, _I, _I, _P],
     "gsm_remap_bilinear_u8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gsm_sad_volume_u8": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gsm_wta_i32": [_P, _P, _I, _I, _P],
@@ -64,9 +66,13 @@ def _sources():
     return sorted(CSRC.glob("*.cu"))
 
 
+def _headers():
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + _headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libgsm_kernels-{h.hexdigest()[:16]}.so"
@@ -114,6 +120,8 @@ def load_library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.gsm_sad_wta_body.argtypes = [_I, _I]
         lib.gsm_sad_wta_body.restype = _I
+        lib.gsm_sad_key_body.argtypes = [_I, _I, _I]
+        lib.gsm_sad_key_body.restype = _I
         lib.gsm_error_string.argtypes = [ctypes.c_int]
         lib.gsm_error_string.restype = ctypes.c_char_p
         _library = lib

@@ -12,10 +12,13 @@ there instead, so the two can pick different disparities within ``r`` rows
 of the border; each side here is held to its own JAX counterpart.
 
 A tensor on the CPU runs the plain twin; a CUDA tensor launches the kernel
-or raises. The whole-range kernel has two hand-written bodies, chosen in C
-from ``(num_disparities, radius)`` alone: the strip body (radius 1..7) and
-the general body (every other radius up to 112); :func:`kernel_body` and
-:func:`launch_plan` say which one a shape takes and how it is launched.
+or raises. Each kernel has two hand-written bodies: the strip body of
+``csrc/sad_strips.cuh`` (radius 1..7), which both sources instantiate, and a
+general body (every other radius up to 112). The choice is made in C, from
+``(num_disparities, radius)`` alone for the whole-range kernel and from
+``(count, total_disparities, radius)`` alone for the key kernel;
+:func:`kernel_body` and :func:`launch_plan`, :func:`key_kernel_body` and
+:func:`key_launch_plan` say which one a shape takes and how it is launched.
 """
 
 from __future__ import annotations
@@ -33,8 +36,8 @@ from gpu_stereo_matching_tpu_torch.ops.aggregate import box_filter_sum
 LAUNCHES = 0
 KEY_LAUNCHES = 0
 
-# The general body's and the key kernel's blocks are 128 or 256 threads wide,
-# 2r + 32 of them at least.
+# The general bodies' blocks are 128 or 256 threads wide, 2r + 32 of them at
+# least.
 MAX_RADIUS = 112
 
 
@@ -101,20 +104,40 @@ def kernel_body(num_disparities: int, radius: int) -> str:
     return BODIES[_build.load_library().gsm_sad_wta_body(num_disparities, radius)]
 
 
+def _plan(entry: str, args, device) -> dict:
+    """The plan that C entry ``entry`` fills for ``args`` on ``device``."""
+    lib = _build.load_library()
+    fields = (ctypes.c_int * (1 + len(_PLAN_FIELDS)))()
+    with torch.cuda.device(device):
+        err = getattr(lib, entry)(*args, fields)
+    _build.check(lib, err, entry)
+    plan = {"body": BODIES[fields[0]], **dict(zip(_PLAN_FIELDS, fields[1:]))}
+    plan["waves"] = plan["blocks"] / (plan["blocks_per_sm"] * plan["sms"])
+    return plan
+
+
 def launch_plan(shape, num_disparities: int, radius: int, device="cuda") -> dict:
     """How the kernel launches for a ``(B, H, W)`` batch on ``device``: its
     body, tile, threads per block, blocks, and the blocks an SM holds at once
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) beside the SM count,
     from which ``waves`` = blocks / (blocks_per_sm * sms)."""
-    lib = _build.load_library()
-    b, h, w = shape
-    fields = (ctypes.c_int * (1 + len(_PLAN_FIELDS)))()
-    with torch.cuda.device(device):
-        err = lib.gsm_sad_wta_plan(b, h, w, num_disparities, radius, fields)
-    _build.check(lib, err, "gsm_sad_wta_plan")
-    plan = {"body": BODIES[fields[0]], **dict(zip(_PLAN_FIELDS, fields[1:]))}
-    plan["waves"] = plan["blocks"] / (plan["blocks_per_sm"] * plan["sms"])
-    return plan
+    return _plan("gsm_sad_wta_plan", (*shape, num_disparities, radius), device)
+
+
+def key_kernel_body(count: int, total_disparities: int, radius: int) -> str:
+    """Which body of the key kernel a range of ``count`` of
+    ``total_disparities`` runs at ``radius``: ``"strips"`` or ``"general"``.
+    Builds the library; needs no card."""
+    return BODIES[_build.load_library().gsm_sad_key_body(count, total_disparities, radius)]
+
+
+def key_launch_plan(shape, count: int, total_disparities: int, radius: int,
+                    device="cuda") -> dict:
+    """:func:`launch_plan` for the key kernel over a range of ``count`` of
+    ``total_disparities`` (where the range starts does not change it): the
+    strip body's shared memory shrinks with ``count``, so the blocks an SM
+    holds are asked per ``count``."""
+    return _plan("gsm_sad_key_plan", (*shape, count, total_disparities, radius), device)
 
 
 def fused_block_matching(

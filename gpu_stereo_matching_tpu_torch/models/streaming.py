@@ -31,6 +31,7 @@ from gpu_stereo_matching_tpu_torch.kernels.sad_wta import (
 from gpu_stereo_matching_tpu_torch.models.block_matching import block_matching_pipeline
 from gpu_stereo_matching_tpu_torch.ops.color import gray_blockmatching_bgr
 from gpu_stereo_matching_tpu_torch.utils.cache import ArtifactCache, content_key
+from gpu_stereo_matching_tpu_torch.utils.profiling import StageTimer
 
 # Buffer names of the rig's state, in the order of the JAX rig's ``_maps``.
 MAP_NAMES = ("left_map_x", "left_map_y", "right_map_x", "right_map_y")
@@ -100,12 +101,22 @@ class StereoRig(nn.Module):
         """(B, H, W, 3) uint8 BGR batches -> (B, H, W) int32 disparities."""
         return self.process_batch(left_bgr, right_bgr)
 
-    def process(self, left_bgr, right_bgr) -> torch.Tensor:
-        """One (H, W, 3) uint8 BGR pair -> (H, W) int32 disparity."""
+    def process(self, left_bgr, right_bgr, timer: Optional[StageTimer] = None) -> torch.Tensor:
+        """One (H, W, 3) uint8 BGR pair -> (H, W) int32 disparity. With a
+        ``timer``, records the stage ``"frame"`` as the JAX rig does: the
+        wait, after the frame's work is enqueued, until the device has done
+        it."""
         rl, rr = self._rectified_gray(self._frames(left_bgr, 3), self._frames(right_bgr, 3))
-        if not self.fused:
-            return block_matching_pipeline(rl, rr, self.config)
-        return fused_block_matching(rl, rr, self.config.num_disparities, self.config.sad_radius)
+        if self.fused:
+            out = fused_block_matching(
+                rl, rr, self.config.num_disparities, self.config.sad_radius
+            )
+        else:
+            out = block_matching_pipeline(rl, rr, self.config)
+        if timer is not None:
+            with timer.stage("frame", fence=out):
+                pass
+        return out
 
     def process_batch(self, left_bgr, right_bgr) -> torch.Tensor:
         """(B, H, W, 3) uint8 BGR batches -> (B, H, W) int32 disparities."""

@@ -29,6 +29,7 @@ PORT_MODULES = [
     "gpu_stereo_matching_tpu_torch.kernels.split_phase",
     "gpu_stereo_matching_tpu_torch.kernels.ctmf_median",
     "gpu_stereo_matching_tpu_torch.utils.cache",
+    "gpu_stereo_matching_tpu_torch.utils.profiling",
     "gpu_stereo_matching_tpu_torch.models.streaming",
     "gpu_stereo_matching_tpu_torch.convert",
     "gpu_stereo_matching_tpu_torch.cli.main",

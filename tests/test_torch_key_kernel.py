@@ -1,7 +1,9 @@
 """Port partial-range key kernel: the plain twin vs JAX
 ``fused_block_matching_key`` in interpret mode (bit-exact), the identity
-that ties the keys to ``fused_block_matching``, the wrapper's checks,
-``ad_cost_volume_offset`` vs JAX, and the kernel vs its twin on a card."""
+that ties the keys to ``fused_block_matching``, the strip body's arithmetic
+over a runtime range (16:16 keys widened once) emulated in torch against the
+twin, the wrapper's checks, ``ad_cost_volume_offset`` vs JAX, and the
+kernel's two bodies vs its twin on a card."""
 
 import numpy as np
 import pytest
@@ -15,6 +17,7 @@ from gpu_stereo_matching_tpu.models.block_matching import block_matching_pipelin
 from gpu_stereo_matching_tpu.ops import cost as jcost
 from gpu_stereo_matching_tpu_torch.kernels import sad_wta as tsad
 from gpu_stereo_matching_tpu_torch.ops import cost as tcost
+from tests.test_torch_sad_wta import STRUCTURED, _packed_pair_emulation, _structured_pair
 
 
 def _pair(seed, shape):
@@ -71,6 +74,70 @@ def test_twin_matches_jax_key(hw, d_start, count, total, radius):
         _port_key(left, right, d_start, count, total, radius),
         _jax_key(left, right, d_start, count, total, radius),
     )
+
+
+# Where ties and extremes decide the key, over ranges that start at an odd d
+# (the staged right tile's offset is wrong only where d_start > 0), with odd
+# and even counts, up to the total and short of it.
+@pytest.mark.parametrize("kind", STRUCTURED)
+@pytest.mark.parametrize(
+    "d_start,count,total,radius",
+    [(17, 15, 64, 5), (33, 31, 64, 5), (5, 8, 65, 2), (47, 18, 65, 7), (1, 1, 64, 1)],
+)
+def test_twin_matches_jax_key_on_structured_inputs(kind, d_start, count, total, radius):
+    left, right = _structured_pair(kind, (19, 90))
+    want = _jax_key(left, right, d_start, count, total, radius)
+    np.testing.assert_array_equal(_port_key(left, right, d_start, count, total, radius), want)
+    if kind == "constant":  # every d ties at SAD 0 but for the invalid columns
+        assert (want[:, total + radius:] == d_start).all()
+
+
+def _emulated_pair(kind, shape, seed):
+    if kind == "random":
+        return _pair(seed, shape)
+    return _structured_pair(kind, shape)
+
+
+# (d_start, count, total, (H, W)): odd and even starts and counts, ranges that
+# end at the total, totals of 64, 65 and 255; 37 rows and 70 columns cross a
+# tile's and a strip's edge.
+EMULATED_RANGES = [
+    (0, 64, 64, (37, 70)), (16, 16, 64, (37, 70)), (17, 15, 64, (37, 70)),
+    (33, 31, 64, (37, 70)), (5, 8, 65, (37, 70)), (48, 17, 65, (37, 70)),
+    (101, 6, 255, (12, 260)), (246, 9, 255, (12, 260)),
+]
+
+
+@pytest.mark.parametrize("kind", ["extremes", "two_level", "constant", "random"])
+@pytest.mark.parametrize("radius", [1, 2, 3, 4, 5, 6, 7])
+@pytest.mark.parametrize("d_start,count,total,shape", EMULATED_RANGES)
+def test_packed_range_arithmetic_matches_key_twin(d_start, count, total, shape, radius, kind):
+    """The strip body over a runtime range, for every radius it serves: the
+    loop's key is ``(SAD << 16) | d`` with the global d and is widened once to
+    ``SAD * total + d``. For d < total < 2**16 and SAD < 2**16 both order the
+    pairs (SAD, d) alike, so the widened minimum is the twin's minimum."""
+    left, right = _emulated_pair(kind, shape, radius)
+    lt, rt = torch.from_numpy(left), torch.from_numpy(right)
+    want = tsad.fused_block_matching_key_reference(lt, rt, d_start, count, total, radius)
+    got = _packed_pair_emulation(lt, rt, count, radius, d_start=d_start, total=total)
+    assert torch.equal(got, want.to(torch.int64))
+
+
+@pytest.mark.parametrize("mutation,kind,d_start,count", [
+    ("local_d", "constant", 17, 15),     # the key must carry the global d
+    ("no_invalid", "random", 17, 15),    # an odd count's dead half must not win
+    ("shift_kept", "random", 16, 16),    # the widening takes the << 16 out
+])
+def test_packed_range_emulation_catches_mutations(mutation, kind, d_start, count):
+    """The emulation is a yardstick only if breaking it shows: each mutation
+    of one step differs from the twin, and the unbroken form does not."""
+    left, right = _emulated_pair(kind, (37, 70), 3)
+    lt, rt = torch.from_numpy(left), torch.from_numpy(right)
+    want = tsad.fused_block_matching_key_reference(lt, rt, d_start, count, 64, 5).to(torch.int64)
+    assert torch.equal(_packed_pair_emulation(lt, rt, count, 5, d_start=d_start, total=64), want)
+    broken = _packed_pair_emulation(lt, rt, count, 5, d_start=d_start, total=64,
+                                    mutation=mutation)
+    assert not torch.equal(broken, want)
 
 
 @pytest.mark.parametrize("seed", [4, 16, 30])
@@ -193,7 +260,11 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# Both bodies of the kernel (the strip body serves r = 1..7, the general one
+# r = 0 and r >= 8), on random and structured inputs: ragged tiles and strips,
+# ranges that start at an odd d, odd counts, totals of 65 and 129.
 @pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["random"] + STRUCTURED)
 @pytest.mark.parametrize(
     "shape,d_start,count,total,radius",
     [
@@ -204,10 +275,18 @@ def cuda_device():
         ((30, 120), 48, 16, 64, 5),
         ((2, 37, 300), 33, 31, 64, 1),
         ((33, 64), 0, 64, 64, 5),
+        ((3, 33, 257), 17, 15, 64, 5),
+        ((1, 65, 129), 101, 28, 129, 7),
+        ((1, 17, 385), 31, 33, 65, 1),
+        ((2, 40, 130), 17, 15, 64, 8),
+        ((1, 65, 129), 1, 128, 129, 9),
     ],
 )
-def test_key_kernel_matches_twin_on_card(cuda_device, shape, d_start, count, total, radius):
-    left, right = _pair(8, shape)
+def test_key_kernel_matches_twin_on_card(cuda_device, shape, d_start, count, total, radius, kind):
+    if kind == "random":
+        left, right = _pair(8, shape)
+    else:
+        left, right = _structured_pair(kind, shape)
     lt = torch.from_numpy(left).to(cuda_device)
     rt = torch.from_numpy(right).to(cuda_device)
     before = tsad.KEY_LAUNCHES
@@ -217,3 +296,20 @@ def test_key_kernel_matches_twin_on_card(cuda_device, shape, d_start, count, tot
     assert torch.equal(
         got, tsad.fused_block_matching_key_reference(lt, rt, d_start, count, total, radius)
     )
+    assert tsad.key_kernel_body(count, total, radius) == (
+        "strips" if 1 <= radius <= 7 else "general")
+
+
+@pytest.mark.gpu
+def test_key_kernel_body_follows_count_total_radius(cuda_device):
+    """The body is a function of (count, total, radius) alone: strips for
+    r = 1..7 while a disparity fits the key's low half and the staged tile
+    fits shared memory, the general body otherwise. (The rule lives in the
+    C library, which only a machine with nvcc builds.)"""
+    assert tsad.key_kernel_body(16, 64, 5) == tsad.key_kernel_body(64, 64, 5) == "strips"
+    assert tsad.key_kernel_body(16, 64, 0) == tsad.key_kernel_body(16, 64, 8) == "general"
+    assert tsad.key_kernel_body(16, 65535, 7) == "strips"
+    assert tsad.key_kernel_body(16, 65536, 7) == "general"
+    assert tsad.key_kernel_body(6000, 8000, 5) == "general"  # the staged tile is too large
+    plan = tsad.key_launch_plan((1, 1090, 1920), 16, 64, 5, cuda_device)
+    assert plan["body"] == "strips" and plan["blocks"] == 35 * 15

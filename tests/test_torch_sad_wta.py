@@ -2,6 +2,8 @@
 interpret mode (bit-exact), the wrapper's dispatch, and the kernel vs its
 twin on a card."""
 
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -109,30 +111,41 @@ def test_twin_matches_jax_fused_on_structured_inputs(kind):
         assert (want[5:-5, 70:] == 9).mean() > 0.9
 
 
-def _packed_pair_emulation(left, right, num_d, radius, tile=32):
+def _packed_pair_emulation(left, right, num_d, radius, tile=32, d_start=0, total=None,
+                           mutation=None):
     """The CUDA strip body's arithmetic in torch, on int64 tensors cut to 32
-    bits after every operation: two disparities share a word (d in the low
-    half, d + 1 in the high half), both passes slide a window sum with one
-    add and one subtract per step (restarting every ``tile`` rows and
-    columns, as the kernel's tiles and strips do), each output keeps the
-    minimum of the keys ``(SAD << 16) | d``, and an odd ``num_d`` runs its
-    last step with the high half held at the invalid constant."""
+    bits after every operation, over the ``num_d`` disparities from
+    ``d_start``: two disparities share a word (d in the low half, d + 1 in
+    the high half), both passes slide a window sum with one add and one
+    subtract per step (restarting every ``tile`` rows and columns, as the
+    kernel's tiles and strips do), each output keeps the minimum of the keys
+    ``(SAD << 16) | d`` with the global d, and an odd ``num_d`` runs its last
+    step with the high half held at the invalid constant.
+
+    What leaves is the whole-range kernel's disparity, the key's low half
+    (``total`` None), or the key kernel's ``SAD * total + d``, widened once
+    from the smallest key (int64). ``mutation`` breaks one step on purpose:
+    ``"local_d"`` keys with d - d_start, ``"no_invalid"`` leaves the odd
+    count's dead half at the sum of nothing, ``"shift_kept"`` widens without
+    taking the ``<< 16`` out."""
     m32 = 0xFFFFFFFF
     k = 2 * radius + 1
     invalid = 255 * k
     h, w = left.shape
+    d_end = d_start + num_d
     li = torch.nn.functional.pad(left.to(torch.int64), (0, 0, radius, radius))
     ri = torch.nn.functional.pad(right.to(torch.int64), (0, 0, radius, radius))
     col = torch.arange(w)
     best = torch.full((h, w), m32, dtype=torch.int64)
-    for d0 in range(0, num_d, 2):
+    for d0 in range(d_start, d_end, 2):
         d1 = d0 + 1
-        ok0, ok1 = col >= d0, (col >= d1) & (d1 < num_d)
+        ok0, ok1 = col >= d0, (col >= d1) & (d1 < d_end)
         pair = torch.zeros_like(li)
         pair[:, d0:] = (li[:, d0:] - ri[:, : w - d0]).abs()
-        if d1 < num_d:
+        if d1 < d_end:
             pair[:, d1:] |= (li[:, d1:] - ri[:, : w - d1]).abs() << 16
-        fix = torch.where(ok0, 0, invalid) | torch.where(ok1, 0, invalid << 16)
+        held = col >= d1 if mutation == "no_invalid" else ok1
+        fix = torch.where(ok0, 0, invalid) | torch.where(held, 0, invalid << 16)
         v = torch.zeros((h, w + 2 * radius), dtype=torch.int64)  # zero columns outside
         for y in range(h):
             if y % tile == 0:
@@ -140,15 +153,20 @@ def _packed_pair_emulation(left, right, num_d, radius, tile=32):
             else:
                 s = (s + pair[y + 2 * radius] - pair[y - 1]) & m32
             v[y, radius:radius + w] = s
+        shift = d_start if mutation == "local_d" else 0
         for x in range(w):
             if x % tile == 0:
                 s = v[:, x:x + k].sum(1) & m32
             else:
                 s = (s + v[:, x + 2 * radius] - v[:, x - 1]) & m32
-            key_lo = ((s << 16) & m32) | d0
-            key_hi = (s & 0xFFFF0000) | d1
+            key_lo = ((s << 16) & m32) | (d0 - shift)
+            key_hi = (s & 0xFFFF0000) | (d1 - shift)
             best[:, x] = torch.minimum(best[:, x], torch.minimum(key_lo, key_hi))
-    return (best & 0xFFFF).to(torch.int32)
+    if total is None:
+        return (best & 0xFFFF).to(torch.int32)
+    if mutation == "shift_kept":
+        return (best & 0xFFFF0000) * total + (best & 0xFFFF)
+    return (best >> 16) * total + (best & 0xFFFF)
 
 
 @pytest.mark.parametrize("kind", ["extremes", "two_level", "random"])
@@ -245,11 +263,27 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
         _build.load_library()
 
 
-def test_library_name_tracks_sources_and_flags(monkeypatch):
+def test_library_name_tracks_sources_and_flags(monkeypatch, tmp_path):
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",))
     assert _build.library_path() != path
+    monkeypatch.undo()
+    assert _build.library_path() == path
+    # A copy of the sources names the same library until a source, or the
+    # header that two of them include, is edited: a stale build is not loaded.
+    copy = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, copy)
+    monkeypatch.setattr(_build, "CSRC", copy)
+    assert _build.library_path() == path
+    for user in ("sad_wta.cu", "sad_wta_key.cu"):
+        assert '#include "sad_strips.cuh"' in (copy / user).read_text()
+    for name in ("sad_strips.cuh", "sad_wta_key.cu"):
+        with open(copy / name, "a") as f:
+            f.write("// edited\n")
+        edited = _build.library_path()
+        assert edited != path
+        path = edited
 
 
 @pytest.fixture

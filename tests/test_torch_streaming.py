@@ -16,9 +16,11 @@ from gpu_stereo_matching_tpu.kernels.sad_wta import fused_block_matching
 from gpu_stereo_matching_tpu.models.streaming import StereoRig as JaxRig
 from gpu_stereo_matching_tpu.ops.color import gray_blockmatching_bgr
 from gpu_stereo_matching_tpu.utils.cache import ArtifactCache as JaxCache
+from gpu_stereo_matching_tpu.utils.profiling import StageTimer as JaxStageTimer
 from gpu_stereo_matching_tpu_torch import convert
 from gpu_stereo_matching_tpu_torch.models.streaming import MAP_NAMES, StereoRig, rig_from_yaml
 from gpu_stereo_matching_tpu_torch.utils.cache import ArtifactCache, content_key
+from gpu_stereo_matching_tpu_torch.utils.profiling import StageTimer
 
 
 @pytest.fixture
@@ -60,6 +62,36 @@ def test_rig_matches_jax_pallas_pipeline(tmp_path, tiny_calib, size_hw, num_d, r
     np.testing.assert_array_equal(single.numpy(), want[0])
     np.testing.assert_array_equal(rig.process_batch(lb, rb).numpy(), want)
     np.testing.assert_array_equal(rig(torch.from_numpy(lb), torch.from_numpy(rb)).numpy(), want)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_process_records_the_frame_stage_as_the_jax_rig(tmp_path, tiny_calib, fused):
+    """``process(..., timer=)`` records one fenced ``"frame"`` span per call,
+    under the JAX rig's stage name, and returns what it returns without a
+    timer; ``process_batch`` takes no timer in either package."""
+    size_hw = (24, 32)
+    cfg = BlockMatchingConfig(num_disparities=4, sad_radius=1)
+    jrig = JaxRig(tiny_calib, size_hw, cfg, cache=JaxCache(str(tmp_path)), use_pallas=False)
+    rig = StereoRig(tiny_calib, size_hw, cfg, device="cpu", fused=fused)
+    rng = np.random.default_rng(3)
+    left = rng.integers(0, 256, (*size_hw, 3), dtype=np.uint8)
+    right = rng.integers(0, 256, (*size_hw, 3), dtype=np.uint8)
+    timer, jtimer = StageTimer(), JaxStageTimer()
+    plain = rig.process(left, right)
+    for n in (1, 2):
+        assert torch.equal(rig.process(left, right, timer=timer), plain)
+        jrig.process(left, right, timer=jtimer)
+        assert [s.name for s in timer.spans] == ["frame"] * n
+        assert [s.name for s in timer.spans] == [s.name for s in jtimer.spans]
+    assert timer.as_dict().keys() == jtimer.as_dict().keys() == {"frame"}
+    assert timer.as_dict()["frame"] == pytest.approx(timer.total_seconds) and \
+        timer.total_seconds >= 0
+    import inspect
+
+    for cls in (StereoRig, JaxRig):
+        assert list(inspect.signature(cls.process).parameters)[1:] == [
+            "left_bgr", "right_bgr", "timer"]
+        assert "timer" not in inspect.signature(cls.process_batch).parameters
 
 
 def test_convert_carries_the_maps(tmp_path, tiny_calib):
