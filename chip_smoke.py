@@ -27,7 +27,13 @@ Phases, each printing its own line:
    part (fused kernel, remap, gray and the rest) and the idle share;
 8. split-phase SAD volume and argmin kernels vs their plain twins on the
    card, bit-exact, on the edge shapes and at 1080x1920 D=64 r=5; the
-   argmin also on right-view volumes, which hold INT32_MAX;
+   argmin also on right-view volumes, which hold INT32_MAX. Then the volume
+   kernel on the structured inputs of phase 3 at shapes that leave ragged
+   tiles (W = 128k + 1, H = 32k + 1), with H < r, odd D, D = W, widths that
+   are no multiple of 4, every r of 1..7 and ``invalid_cost`` in {0, 1, 128,
+   255}; the line counts the cases each of the kernel's two bodies ran, and
+   the phase fails if a body ran none or if (D, r) = (64, 5) does not take
+   the strip body;
 9. median kernel vs its plain twin, bit-exact: r in {1, 3, 4, 7, 9, 60}
    with and without a random valid mask, a mask with all-invalid windows,
    constant 0 and 255 images, a (2, H, W) batch, 1080x1920 at r=3, 5, and
@@ -38,9 +44,11 @@ Phases, each printing its own line:
    each bit-exact against the same path with every kernel replaced by its
    plain twin; the counters are set to 0 before each entry point and must
    read its exact launches just after it;
-11. CUDA-event timings at 1080p of the three new kernels beside their twins
-   and of the bm+ frame beside its all-plain run, and the bm+ frame's time
-   by stage;
+11. CUDA-event timings at 1080p of the three bm+ kernels beside their twins
+   (the volume kernel with its launch plan, on one pair that stays in the
+   L2 and over a ring of 8 pairs that do not, beside a plain fill of the
+   volume's bytes) and of the bm+ frame beside its all-plain run, and the
+   bm+ frame's time by stage;
 12. the partial-range key kernel vs its plain twin, bit-exact: edge shapes
    (ragged tiles, B = 1 and 3) with ranges that start at 0, at an odd d and
    end at the total, r in {0, 1, 5, 7}; the structured inputs of phase 3 at
@@ -106,6 +114,11 @@ EDGE_CASES = [  # (B, H, W, D, r): ragged tiles, odd D, r = 0, D = W, r = 6
 STRUCTURED_CASES = [  # (B, H, W, D, r): W = 128k + 1 and H = 32k + 1 leave a 1-wide tile and a 1-row tile
     (3, 33, 257, 64, 5), (1, 65, 129, 129, 7), (1, 17, 385, 65, 1), (2, 40, 130, 63, 3),
     (3, 33, 257, 63, 0), (1, 40, 130, 64, 8), (1, 65, 129, 129, 9),
+]
+VOLUME_CASES = [  # (H, W, D, r): ragged tiles, H < r, odd D, D = W, W % 4 != 0, every r of 0..9
+    (33, 257, 64, 5), (65, 129, 129, 7), (17, 385, 65, 1), (40, 130, 63, 3), (4, 140, 64, 5),
+    (70, 256, 33, 2), (36, 132, 64, 4), (40, 128, 64, 6), (33, 257, 63, 0), (40, 130, 64, 8),
+    (65, 129, 129, 9),
 ]
 KEY_RANGES = [  # (d_start, count, total)
     (0, 8, 8), (3, 5, 8), (5, 3, 16), (16, 16, 64), (48, 16, 64), (33, 31, 64), (0, 64, 64),
@@ -280,11 +293,13 @@ def run_bm_plus_phases(dev, u8, calib) -> list:
     # 8. Split-phase kernels vs their twins.
     err_e1 = err_e2 = 0
     right_views = 0
+    bodies = {"strips": 0, "general": 0}
     for _, h, w, d, r in EDGE_CASES + [(1, 1080, 1920, 64, 5)]:
         left, right = u8((h, w)), u8((h, w))
         vol = split_phase.sad_volume(left, right, d, r)
         want = split_phase.sad_volume_reference(left, right, d, r)
         err_e1 = max(err_e1, differ(vol, want, f"sad_volume {(h, w, d, r)}"))
+        bodies[split_phase.volume_kernel_body(d, r)] += 1
         err_e2 = max(err_e2, differ(split_phase.wta_from_sad(vol), wta_disparity(want),
                                     f"wta_from_sad {(h, w, d, r)}"))
         del want
@@ -297,7 +312,22 @@ def run_bm_plus_phases(dev, u8, calib) -> list:
                                     f"wta_from_sad right view {(h, w, d, r)}"))
         del vol, vol_r
     torch.cuda.empty_cache()
-    log("8-split-phase-vs-twin", cases=len(EDGE_CASES) + 1, right_views_with_int32_max=right_views,
+    structured = 0
+    for h, w, d, r in VOLUME_CASES:
+        for kind, left, right in structured_pairs(rng, dev, (h, w)):
+            for invalid in (0, 1, 128, 255):
+                err_e1 = max(err_e1, differ(
+                    split_phase.sad_volume(left, right, d, r, invalid),
+                    split_phase.sad_volume_reference(left, right, d, r, invalid),
+                    f"sad_volume {(h, w, d, r)} invalid_cost={invalid} ({kind})"))
+                bodies[split_phase.volume_kernel_body(d, r)] += 1
+                structured += 1
+    if not all(bodies.values()) or split_phase.volume_kernel_body(64, 5) != "strips":
+        raise AssertionError(f"phase 8 must cover both bodies, (64, 5) on strips: {bodies}")
+    log("8-split-phase-vs-twin", cases=len(EDGE_CASES) + 1 + structured,
+        structured_cases=structured, cases_by_body=bodies,
+        body_of_64_5=split_phase.volume_kernel_body(64, 5),
+        right_views_with_int32_max=right_views,
         max_abs_err_sad_volume=err_e1, max_abs_err_wta=err_e2, ok=True)
 
     # 9. Median kernel vs its twin.
@@ -425,14 +455,29 @@ def run_bm_plus_phases(dev, u8, calib) -> list:
     vol = split_phase.sad_volume(l1, r1, 64, 5)
     t_e1 = cuda_ms(lambda: split_phase.sad_volume(l1, r1, 64, 5))
     p_e1 = cuda_ms(lambda: split_phase.sad_volume_reference(l1, r1, 64, 5), reps=3)
+    ring = [(u8((1080, 1920)), u8((1080, 1920))) for _ in range(8)]
+
+    def volumes_of_ring():
+        for left, right in ring:
+            split_phase.sad_volume(left, right, 64, 5)
+
+    t_e1_ring = cuda_ms(volumes_of_ring) / len(ring)
+    del ring
+    # What the card takes to write the volume's bytes at all: a plain fill.
+    scratch = torch.empty_like(vol)
+    t_fill = cuda_ms(lambda: scratch.fill_(1))
+    del scratch
     t_e2 = cuda_ms(lambda: split_phase.wta_from_sad(vol))
     p_e2 = cuda_ms(lambda: wta_disparity(vol))
     lib_e2 = cuda_ms(lambda: torch.argmin(vol, dim=0))  # the yardstick, used nowhere in the port
     img = u8((1080, 1920))
     t_d = {r: cuda_ms(lambda: ctmf_median.ctmf_median_u8(img, r)) for r in (3, 7)}
     p_d = {r: cuda_ms(lambda: median_filter_u8(img, r, "histogram"), reps=3) for r in (3, 7)}
-    for name, t, p in (("sad_volume", t_e1, p_e1), ("wta_from_sad", t_e2, p_e2)):
-        log("11-time", kernel=name, shape=[1080, 1920, 64, 5], ms=t, plain_ms=p)
+    log("11-time", kernel="sad_volume", shape=[1080, 1920, 64, 5], ms=t_e1, plain_ms=p_e1,
+        ms_per_pair_over_a_ring_of_8=t_e1_ring, fill_of_the_same_bytes_ms=t_fill,
+        plan=split_phase.volume_launch_plan((1080, 1920), 64, 5, dev),
+        general_body_plan_at_r_8=split_phase.volume_launch_plan((1080, 1920), 64, 8, dev))
+    log("11-time", kernel="wta_from_sad", shape=[1080, 1920, 64, 5], ms=t_e2, plain_ms=p_e2)
     for r in (3, 7):
         log("11-time", kernel="ctmf_median", shape=[1080, 1920], radius=r, ms=t_d[r], plain_ms=p_d[r])
     t_bm = cuda_ms(lambda: block_matching_pipeline(l1, r1, cfg))

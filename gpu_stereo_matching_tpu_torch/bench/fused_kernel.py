@@ -1,4 +1,5 @@
-"""Time the fused SAD + WTA kernel on the card, one JSON line per shape.
+"""Time a block-matching kernel on the card, one JSON line per shape: the
+fused SAD + WTA kernel, the key kernel or the SAD-volume kernel.
 
 For each ``BxHxW`` shape: the kernel's launch plan (body, tile, blocks,
 blocks per SM, waves), whether its result equals the plain twin's on the
@@ -9,7 +10,10 @@ gives them. There is no CPU mode: without a card the run raises.
 Run: ``python -m gpu_stereo_matching_tpu_torch.bench.fused_kernel``
 (defaults: 1080x1920 at B=1 and B=32, 720x1280 at B=1 and B=8, D=64, r=5).
 With ``--key d_start,count,total`` it times the partial-range key kernel
-over that range instead (``--disparities`` is then not read).
+over that range instead (``--disparities`` is then not read). With
+``--volume`` it times the SAD-volume kernel of the bm+ path, which takes
+one pair a launch: a ``BxHxW`` shape is then a ring of B pairs launched in
+turn, so B=1 reruns one pair that stays in the L2 and a larger B does not.
 To compare two trees, run each tree's module in turns on one card.
 """
 
@@ -25,7 +29,7 @@ import numpy as np
 import torch
 
 from gpu_stereo_matching_tpu_torch.device import resolve_device
-from gpu_stereo_matching_tpu_torch.kernels import sad_wta
+from gpu_stereo_matching_tpu_torch.kernels import sad_wta, split_phase
 
 DEFAULT_SHAPES = ("1x1080x1920", "32x1080x1920", "1x720x1280", "8x720x1280")
 
@@ -61,11 +65,15 @@ def main(argv=None) -> int:
     p.add_argument("--disparities", type=int, default=64)
     p.add_argument("--key", metavar="D_START,COUNT,TOTAL",
                    help="time the key kernel over this range, not the whole-range kernel")
+    p.add_argument("--volume", action="store_true",
+                   help="time the SAD-volume kernel, one launch per pair of the batch")
     p.add_argument("--radius", type=int, default=5)
     p.add_argument("--reps", type=int, default=7)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda", help="cuda or cuda:N")
     args = p.parse_args(argv)
+    if args.key and args.volume:
+        p.error("--key and --volume exclude each other")
     dev = resolve_device(args.device)
     if dev.type != "cuda":
         raise RuntimeError("fused_kernel: the kernel runs on a CUDA device only")
@@ -83,6 +91,13 @@ def main(argv=None) -> int:
             want = sad_wta.fused_block_matching_key_reference(
                 left[0], right[0], d_start, count, total, args.radius)
             plan = sad_wta.key_launch_plan(shape, count, total, args.radius, dev)
+        elif args.volume:
+            name, what = "sad_volume", {"disparities": args.disparities}
+            run = lambda: [split_phase.sad_volume(l, r, args.disparities, args.radius)  # noqa: E731
+                           for l, r in zip(left, right)]
+            want = split_phase.sad_volume_reference(left[0], right[0], args.disparities,
+                                                    args.radius)
+            plan = split_phase.volume_launch_plan(shape[1:], args.disparities, args.radius, dev)
         else:
             name, what = "fused_block_matching_batched", {"disparities": args.disparities}
             run = lambda: sad_wta.fused_block_matching_batched(  # noqa: E731

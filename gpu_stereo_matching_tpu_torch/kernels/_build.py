@@ -40,6 +40,7 @@ _SIGNATURES = {
     "gsm_sad_key_plan": [_I, _I, _I, _I, _I, _I, _P],
     "gsm_remap_bilinear_u8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gsm_sad_volume_u8": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "gsm_sad_volume_plan": [_I, _I, _I, _I, _P],
     "gsm_wta_i32": [_P, _P, _I, _I, _P],
     "gsm_median_u8": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
@@ -122,6 +123,8 @@ def load_library() -> ctypes.CDLL:
         lib.gsm_sad_wta_body.restype = _I
         lib.gsm_sad_key_body.argtypes = [_I, _I, _I]
         lib.gsm_sad_key_body.restype = _I
+        lib.gsm_sad_volume_body.argtypes = [_I, _I]
+        lib.gsm_sad_volume_body.restype = _I
         lib.gsm_error_string.argtypes = [ctypes.c_int]
         lib.gsm_error_string.restype = ctypes.c_char_p
         _library = lib

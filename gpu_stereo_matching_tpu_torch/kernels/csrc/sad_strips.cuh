@@ -1,19 +1,28 @@
-// The strip body of the fused SAD + winner-take-all kernels for Hopper
-// (sm_90a), shared by sad_wta.cu (the whole disparity range -> disparities)
-// and sad_wta_key.cu (a runtime range [d_start, d_start + count) -> keys).
+// The strip body of the block-matching kernels for Hopper (sm_90a), shared by
+// sad_wta.cu (the whole disparity range -> disparities), sad_wta_key.cu (a
+// runtime range [d_start, d_start + count) -> keys) and split_phase.cu (the
+// SAD volume itself, every disparity's plane).
 //
-// For each d of the range it computes the fused formula exactly:
+// For each d of the range it computes
 //   diff(y, x)  = |L(y, x) - R(y, x - d)|, rows outside the image are 0;
-//   v(y, x)     = sum over |y' - y| <= r of diff(y', x), then
-//   v(y, x)     = 255 * (2r + 1) where x < d, d the global disparity;
+//   v(y, x)     = sum over |y' - y| <= r of diff(y', x), then, where x < d
+//                 (d the global disparity), the invalid cost of the column;
 //   SAD(y, x)   = sum over |x' - x| <= r, 0 <= x' < W of v(y, x');
-// and keeps per pixel the minimum of the keys (SAD << 16) | d, that is the
-// smallest SAD and, among equal SADs, the smallest d. What leaves the kernel
-// is the template parameter `Out` applied to that key: sad_wta.cu stores its
-// low half, sad_wta_key.cu widens it to SAD * total + d.
+// and hands each step's sums to a policy, its template parameter:
+//   - KeepMinKey<Out> (the fused formula: an invalid column costs the
+//     full-window constant 255 * (2r + 1) at every row) keeps per pixel the
+//     minimum of the keys (SAD << 16) | d, that is the smallest SAD and,
+//     among equal SADs, the smallest d, and applies `Out` to that key once
+//     after the loop: sad_wta.cu stores its low half, sad_wta_key.cu widens
+//     it to SAD * total + d;
+//   - a policy with kClipped (the unfused formula: an invalid column costs
+//     `invalid` times the rows of the window that lie inside the image)
+//     emits both halves of every step: split_phase.cu writes them to the
+//     planes d and d + 1 of the volume.
 //
-// It serves r = 1..7 (255 * (2r + 1)^2 < 2^16: a SAD fits a half word) and
-// disparities below 65536 (d, and an odd count's d + 1, fit the other half).
+// It serves r = 1..7 (255 * (2r + 1)^2 < 2^16: a SAD fits a half word) and,
+// where keys are kept, disparities below 65536 (d, and an odd count's d + 1,
+// fit the other half).
 // About 4 integer instructions per pixel and disparity:
 //   - A block of 160 threads owns 32 rows by 128 output columns. The right
 //     tile is staged once in shared memory as 4-row words ([row / 4][column],
@@ -29,7 +38,8 @@
 //     adds and subtracts whatever the order. An odd count runs its last step
 //     with the high half held at the invalid constant and d + 1 = d_start +
 //     count in its key: the largest SAD a window can have beside a d above
-//     every d of the range, so it can tie and never win.
+//     every d of the range, so it can tie and never win. (A policy that
+//     emits every step simply does not store that half.)
 //   - Vertical pass, one thread a column: per 4 rows two loads and two
 //     __vabsdiffu4 give eight absolute differences, each computed once; byte
 //     permutes spread them into (d, d + 1) halves, and one add-subtract per
@@ -43,12 +53,18 @@
 //     update.
 //   - The tile is 128 columns wide so that 1920 and 1280 divide into whole
 //     tiles and a 1080p frame is 510 blocks, one wave at 4 blocks an SM.
-//   - Results leave through the free sums buffer, rows coalesced.
+//   - The keys leave through the free sums buffer, rows coalesced.
+//   - A clipped policy's invalid half is fed, in place of the absolute
+//     differences, a word that holds `invalid` for each staged row inside the
+//     image and 0 for the rest, so the sliding sum is invalid * cnt(y) by
+//     construction.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace gsm_strips {
 
@@ -75,9 +91,9 @@ __host__ __device__ constexpr int strip_vstride(int r) {
 }
 
 // Dynamic shared memory of a block over `count` disparities: the
-// double-buffered sums and the right tile.
-inline size_t strip_smem(int count, int r) {
-  return sizeof(uint32_t) * (2 * kStripH * strip_vstride(r) +
+// double-buffered sums, the policy's `extra_words` and the right tile.
+inline size_t strip_smem(int count, int r, int extra_words = 0) {
+  return sizeof(uint32_t) * (2 * kStripH * strip_vstride(r) + extra_words +
                              (size_t)strip_words(r) * (kTileW + 2 * r + count - 1));
 }
 
@@ -93,11 +109,14 @@ inline bool takes_strips(int count, int total, int r) {
 // (high half) down the tile's rows, into v[i * VS]. `lw` are the column's
 // left words, `rp` the right tile's words at d0's column (d0 + 1's is one
 // to the left). With kBoth both disparities are valid for the column;
-// without, a half whose disparity is not (ok0, ok1) loads and sums nothing
-// and stays at the invalid constant that `fix` starts it from.
-template <int R, int VS, bool kBoth>
+// without, a half whose disparity is not (ok0, ok1) loads nothing: it sums
+// nothing and stays at the invalid constant that `fix` starts it from, or,
+// with kClipped, it sums the words `inv` (the invalid cost in the bytes of
+// the staged rows inside the image) from a `fix` of 0.
+template <int R, int VS, bool kBoth, bool kClipped>
 __device__ __forceinline__ void pair_column(const uint32_t* lw, const uint32_t* rp, int rw,
-                                            bool ok0, bool ok1, uint32_t fix, uint32_t* v) {
+                                            bool ok0, bool ok1, uint32_t fix,
+                                            const uint32_t* inv, uint32_t* v) {
   constexpr int K = 2 * R + 1, HQ = strip_words(R);
   uint32_t pair[HQ * 4];  // staged row j: |diff at d0| low, |diff at d0 + 1| high
 #pragma unroll
@@ -107,8 +126,9 @@ __device__ __forceinline__ void pair_column(const uint32_t* lw, const uint32_t* 
       a0 = __vabsdiffu4(lw[q], rp[q * rw]);
       a1 = __vabsdiffu4(lw[q], rp[q * rw - 1]);
     } else {
-      a0 = ok0 ? __vabsdiffu4(lw[q], rp[q * rw]) : 0u;
-      a1 = ok1 ? __vabsdiffu4(lw[q], rp[q * rw - 1]) : 0u;
+      const uint32_t idle = kClipped ? inv[q] : 0u;
+      a0 = ok0 ? __vabsdiffu4(lw[q], rp[q * rw]) : idle;
+      a1 = ok1 ? __vabsdiffu4(lw[q], rp[q * rw - 1]) : idle;
     }
     const uint32_t c01 = __byte_perm(a0, a1, 0x5140);  // a0.b0 a1.b0 a0.b1 a1.b1
     const uint32_t c23 = __byte_perm(a0, a1, 0x7362);  // a0.b2 a1.b2 a0.b3 a1.b3
@@ -128,12 +148,65 @@ __device__ __forceinline__ void pair_column(const uint32_t* lw, const uint32_t* 
   }
 }
 
-// (B, H, W) uint8 pairs -> (B, H, W) int32, `store` applied to each pixel's
-// smallest key (SAD << 16) | d over d_start <= d < d_start + count.
-template <int R, class Out>
-__global__ void __launch_bounds__(kStripThreads, 4) strip_kernel(
-    const uint8_t* __restrict__ left, const uint8_t* __restrict__ right,
-    int32_t* __restrict__ out, int H, int W, int d_start, int count, Out store) {
+// What a policy's hooks see of the block: its thread, tile and range, the
+// horizontal pass's row and strip of this thread, the sums buffers and the
+// policy's own words of shared memory (16-byte aligned).
+struct Tile {
+  int tid, x0, y0, hrow, strip, H, W, d_start, d_end;
+  uint32_t* vs;
+  uint32_t* extra;
+};
+
+// The policy that keeps, per output, the smallest key (SAD << 16) | d of the
+// range and stores `store(key)` to `out` (one frame's plane) after the loop.
+// Invalid columns cost the fused constant 255 * (2r + 1).
+template <class Out>
+struct KeepMinKey {
+  static constexpr bool kClipped = false;
+  static constexpr int kExtraWords = 0;
+  Out store;
+  int32_t* out;
+  uint32_t best[kStripW];
+
+  __device__ __forceinline__ void begin() {
+#pragma unroll
+    for (int j = 0; j < kStripW; ++j) best[j] = 0xffffffffu;
+  }
+  __device__ __forceinline__ void before_step(const Tile&, int) {}
+  // A three-way unsigned minimum per pair of disparities is the whole
+  // (min, argmin) update; the low half's key is one multiply-add (the high
+  // half shifts out).
+  __device__ __forceinline__ void sum(int j, uint32_t s, int d0, int d1) {
+    best[j] = __vimin3_u32(best[j], s * 65536u + (uint32_t)d0, (s & 0xffff0000u) | (uint32_t)d1);
+  }
+  __device__ __forceinline__ void end_step(const Tile&, int, int) {}
+  // Out through the free sums buffer, so that rows are written coalesced.
+  template <int VS>
+  __device__ __forceinline__ void finish(const Tile& t) {
+    __syncthreads();
+    if (t.tid < kHThreads) {
+      uint4* p = reinterpret_cast<uint4*>(t.vs + t.hrow * VS + t.strip * kStripW);
+#pragma unroll
+      for (int m = 0; m < kStripW / 4; ++m)
+        p[m] = make_uint4(store(best[4 * m]), store(best[4 * m + 1]), store(best[4 * m + 2]),
+                          store(best[4 * m + 3]));
+    }
+    __syncthreads();
+    for (int i = t.tid; i < kStripH * kTileW; i += kStripThreads) {
+      const int row = i / kTileW, col = i % kTileW;
+      if (t.y0 + row < t.H && t.x0 + col < t.W)
+        out[(size_t)(t.y0 + row) * t.W + t.x0 + col] = (int32_t)t.vs[row * VS + col];
+    }
+  }
+};
+
+// One block's work: the tile (blockIdx.x, blockIdx.y) of one (H, W) uint8
+// pair over the disparities d_start <= d < d_start + count, each step's
+// packed sums handed to `p`.
+template <int R, class Policy>
+__device__ __forceinline__ void strip_body(const uint8_t* __restrict__ lf,
+                                           const uint8_t* __restrict__ rf, int H, int W,
+                                           int d_start, int count, Policy& p) {
   constexpr int K = 2 * R + 1;
   constexpr int CW = kTileW + 2 * R;  // columns of the vertical pass
   constexpr int HQ = strip_words(R);
@@ -144,15 +217,13 @@ __global__ void __launch_bounds__(kStripThreads, 4) strip_kernel(
   extern __shared__ __align__(16) unsigned char smem[];
   const int rw = CW + count - 1;  // staged columns of the right tile
   const int d_end = d_start + count;
-  uint32_t* vs = reinterpret_cast<uint32_t*>(smem);  // [2][kStripH][VS]
-  uint32_t* r4 = vs + 2 * kStripH * VS;               // [HQ][rw]
+  uint32_t* vs = reinterpret_cast<uint32_t*>(smem);                 // [2][kStripH][VS]
+  uint32_t* r4 = vs + 2 * kStripH * VS + Policy::kExtraWords;        // [HQ][rw]
+  uint32_t* inv = r4 + HQ * rw;                                      // [HQ], kClipped only
 
   const int tid = threadIdx.x;
   const int x0 = blockIdx.x * kTileW;   // first output column
   const int y0 = blockIdx.y * kStripH;  // first output row
-  const size_t frame = (size_t)blockIdx.z * H * W;
-  const uint8_t* lf = left + frame;
-  const uint8_t* rf = right + frame;
 
   // Word q of a staged column packs staged rows 4q..4q+3, staged row j being
   // image row y0 - R + j; outside the image: 0. The right tile's staged
@@ -177,6 +248,19 @@ __global__ void __launch_bounds__(kStripThreads, 4) strip_kernel(
 #pragma unroll
     for (int q = 0; q < HQ; ++q) r4[q * rw + col] = words[q];
   }
+  // What a clipped policy's invalid half sums in place of the absolute
+  // differences: `invalid` in the byte of each staged row inside the image.
+  if constexpr (Policy::kClipped) {
+    if (tid < HQ) {
+      uint32_t word = 0;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int gy = y0 - R + 4 * tid + b;
+        if (gy >= 0 && gy < H) word |= p.invalid << (8 * b);
+      }
+      inv[tid] = word;
+    }
+  }
 
   // Vertical pass: thread tid owns image column xc, whose left words stay in
   // registers for the whole loop.
@@ -198,49 +282,51 @@ __global__ void __launch_bounds__(kStripThreads, 4) strip_kernel(
   }
   __syncthreads();
 
-  // Horizontal pass: thread tid < kHThreads owns row hrow, outputs
-  // strip * kStripW .. + kStripW - 1, and one key (SAD << 16) | d for each.
-  const int hrow = tid % kStripH;
-  const int strip = tid / kStripH;
-  uint32_t best[kStripW];
-#pragma unroll
-  for (int j = 0; j < kStripW; ++j) best[j] = 0xffffffffu;
+  // Horizontal pass: thread tid < kHThreads owns row hrow and the outputs
+  // strip * kStripW .. + kStripW - 1 of it.
+  const Tile tile = {tid, x0, y0, tid % kStripH, tid / kStripH, H, W, d_start, d_end,
+                     vs, vs + 2 * kStripH * VS};
+  p.begin();
 
   int buffer = 0;
   for (int d0 = d_start; d0 < d_end; d0 += 2) {
     const int d1 = d0 + 1;
+    p.before_step(tile, d0);
     // Double buffer: a buffer is written again only after every thread has
     // passed the barrier of the step between, so its reads are done.
     uint32_t* v = vs + buffer * kStripH * VS;
     buffer ^= 1;
     if (has_col) {
       // Columns outside the image sum 0; a disparity past the column
-      // (x < d), or the d1 = d_end of an odd count, holds the invalid
-      // constant.
+      // (x < d), or the d1 = d_end of an odd count, holds the invalid cost.
       const bool ok0 = in_image && xc >= d0;
       const bool ok1 = in_image && xc >= d1 && d1 < d_end;
-      if (!ok0 && !ok1) {
+      bool constant = !ok0 && !ok1;  // the whole column is one known value
+      if constexpr (Policy::kClipped) constant = !in_image;
+      if (constant) {
         const uint32_t fill = in_image ? kInvalid * 0x10001u : 0u;
 #pragma unroll
         for (int i = 0; i < kStripH; ++i) v[i * VS + tid] = fill;
       } else {
         const uint32_t* rp = r4 + tid + (d_end - 1 - d0);
         if (ok0 && ok1) {
-          pair_column<R, VS, true>(lw, rp, rw, true, true, 0u, v + tid);
+          pair_column<R, VS, true, false>(lw, rp, rw, true, true, 0u, inv, v + tid);
         } else {
-          const uint32_t fix = (ok0 ? 0u : kInvalid) | (ok1 ? 0u : kInvalid << 16);
-          pair_column<R, VS, false>(lw, rp, rw, ok0, ok1, fix, v + tid);
+          const uint32_t fix = Policy::kClipped
+                                   ? 0u
+                                   : (ok0 ? 0u : kInvalid) | (ok1 ? 0u : kInvalid << 16);
+          pair_column<R, VS, false, Policy::kClipped>(lw, rp, rw, ok0, ok1, fix, inv, v + tid);
         }
       }
     }
     __syncthreads();
     if (tid < kHThreads) {
       // Output j of the strip sums columns j..j+2R of its row of v.
-      const uint4* p = reinterpret_cast<const uint4*>(v + hrow * VS + strip * kStripW);
+      const uint4* q = reinterpret_cast<const uint4*>(v + tile.hrow * VS + tile.strip * kStripW);
       uint32_t w[NW * 4];
 #pragma unroll
       for (int m = 0; m < NW; ++m) {
-        const uint4 t = p[m];
+        const uint4 t = q[m];
         w[4 * m + 0] = t.x;
         w[4 * m + 1] = t.y;
         w[4 * m + 2] = t.z;
@@ -252,68 +338,73 @@ __global__ void __launch_bounds__(kStripThreads, 4) strip_kernel(
 #pragma unroll
       for (int j = 0; j < kStripW; ++j) {
         if (j > 0) s += w[j + 2 * R] - w[j - 1];
-        // The low half's key as one multiply-add (the high half shifts out).
-        best[j] = __vimin3_u32(best[j], s * 65536u + (uint32_t)d0,
-                               (s & 0xffff0000u) | (uint32_t)d1);
+        p.sum(j, s, d0, d1);
       }
+      p.end_step(tile, d0, d1);
     }
   }
-
-  // Out through the free sums buffer, so that rows are written coalesced.
-  __syncthreads();
-  if (tid < kHThreads) {
-    uint4* p = reinterpret_cast<uint4*>(vs + hrow * VS + strip * kStripW);
-#pragma unroll
-    for (int m = 0; m < kStripW / 4; ++m)
-      p[m] = make_uint4(store(best[4 * m]), store(best[4 * m + 1]), store(best[4 * m + 2]),
-                        store(best[4 * m + 3]));
-  }
-  __syncthreads();
-  for (int i = tid; i < kStripH * kTileW; i += kStripThreads) {
-    const int row = i / kTileW, col = i % kTileW;
-    if (y0 + row < H && x0 + col < W)
-      out[frame + (size_t)(y0 + row) * W + x0 + col] = (int32_t)vs[row * VS + col];
-  }
+  p.template finish<VS>(tile);
 }
 
-// Launches the strip body at radius R, or with `occupancy` only asks how
-// many of its blocks an SM holds at once for this range.
+// (B, H, W) uint8 pairs -> (B, H, W) int32, `store` applied to each pixel's
+// smallest key (SAD << 16) | d over d_start <= d < d_start + count.
 template <int R, class Out>
-cudaError_t launch_strips(const uint8_t* left, const uint8_t* right, int32_t* out, int B, int H,
-                          int W, int d_start, int count, Out store, cudaStream_t stream,
-                          int* occupancy) {
-  const size_t smem = strip_smem(count, R);
-  cudaError_t err = cudaFuncSetAttribute(
-      strip_kernel<R, Out>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+__global__ void __launch_bounds__(kStripThreads, 4) strip_kernel(
+    const uint8_t* __restrict__ left, const uint8_t* __restrict__ right,
+    int32_t* __restrict__ out, int H, int W, int d_start, int count, Out store) {
+  const size_t frame = (size_t)blockIdx.z * H * W;
+  KeepMinKey<Out> keep = {store, out + frame};
+  strip_body<R>(left + frame, right + frame, H, W, d_start, count, keep);
+}
+
+// Launches `kernel`, a __global__ function around strip_body, over `grid`
+// with `smem` bytes of dynamic shared memory, or with `occupancy` only asks
+// how many of its blocks an SM holds at once.
+template <class... Params, class... Args>
+cudaError_t launch_body(void (*kernel)(Params...), size_t smem, dim3 grid, cudaStream_t stream,
+                        int* occupancy, Args... args) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(strip_kernel<R, Out>,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   if (occupancy)
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(occupancy, strip_kernel<R, Out>,
-                                                         kStripThreads, smem);
-  dim3 grid((W + kTileW - 1) / kTileW, (H + kStripH - 1) / kStripH, B);
-  strip_kernel<R, Out><<<grid, kStripThreads, smem, stream>>>(left, right, out, H, W, d_start,
-                                                             count, store);
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(occupancy, kernel, kStripThreads, smem);
+  kernel<<<grid, kStripThreads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
-// The strip body at a runtime radius 1..kStripMaxR.
+// The tiles of an (H, W) image, `depth` deep.
+inline dim3 strip_grid(int H, int W, int depth) {
+  return dim3((W + kTileW - 1) / kTileW, (H + kStripH - 1) / kStripH, depth);
+}
+
+// f(std::integral_constant<int, r>()) for a runtime radius 1..kStripMaxR.
+template <class F>
+cudaError_t for_radius(int r, F f) {
+  switch (r) {
+    case 1: return f(std::integral_constant<int, 1>());
+    case 2: return f(std::integral_constant<int, 2>());
+    case 3: return f(std::integral_constant<int, 3>());
+    case 4: return f(std::integral_constant<int, 4>());
+    case 5: return f(std::integral_constant<int, 5>());
+    case 6: return f(std::integral_constant<int, 6>());
+    case 7: return f(std::integral_constant<int, 7>());
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The key-keeping strip kernel at a runtime radius 1..kStripMaxR.
 template <class Out>
 cudaError_t run_strips(int r, const uint8_t* l, const uint8_t* rt, int32_t* o, int B, int H,
                        int W, int d_start, int count, Out store, cudaStream_t s,
                        int* occupancy) {
-  switch (r) {
-    case 1: return launch_strips<1>(l, rt, o, B, H, W, d_start, count, store, s, occupancy);
-    case 2: return launch_strips<2>(l, rt, o, B, H, W, d_start, count, store, s, occupancy);
-    case 3: return launch_strips<3>(l, rt, o, B, H, W, d_start, count, store, s, occupancy);
-    case 4: return launch_strips<4>(l, rt, o, B, H, W, d_start, count, store, s, occupancy);
-    case 5: return launch_strips<5>(l, rt, o, B, H, W, d_start, count, store, s, occupancy);
-    case 6: return launch_strips<6>(l, rt, o, B, H, W, d_start, count, store, s, occupancy);
-    case 7: return launch_strips<7>(l, rt, o, B, H, W, d_start, count, store, s, occupancy);
-  }
-  return cudaErrorInvalidValue;
+  return for_radius(r, [&](auto radius) {
+    constexpr int R = decltype(radius)::value;
+    return launch_body(strip_kernel<R, Out>, strip_smem(count, R), strip_grid(H, W, B), s,
+                       occupancy, l, rt, o, H, W, d_start, count, store);
+  });
 }
 
 // The first five fields of a launch plan {body, tile rows, tile columns,

@@ -12,7 +12,12 @@ ops path, not always with ``fused_block_matching``. The argmin's twin is
 ``ops/wta.py::wta_disparity`` (ties to the smallest d).
 
 A tensor on the CPU runs the plain twin; a CUDA tensor launches the kernel
-or raises.
+or raises. The volume kernel has two hand-written bodies: the strip body of
+``csrc/sad_strips.cuh`` (radius 1..7), which it shares with the fused
+kernels, and a general body (every other radius up to 112). The choice is
+made in C from ``(num_disparities, radius)`` alone;
+:func:`volume_kernel_body` and :func:`volume_launch_plan` say which one a
+shape takes and how it is launched.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import torch
 
 from gpu_stereo_matching_tpu_torch.core.validation import check_gray_pair
 from gpu_stereo_matching_tpu_torch.kernels import _build
+from gpu_stereo_matching_tpu_torch.kernels.sad_wta import BODIES, _plan
 from gpu_stereo_matching_tpu_torch.ops.aggregate import aggregate_cost_volume
 from gpu_stereo_matching_tpu_torch.ops.cost import ad_cost_volume
 from gpu_stereo_matching_tpu_torch.ops.wta import wta_disparity
@@ -28,7 +34,7 @@ from gpu_stereo_matching_tpu_torch.ops.wta import wta_disparity
 # Kernel launches since import (or since a caller reset them to 0).
 LAUNCHES = {"sad_volume": 0, "wta_from_sad": 0}
 
-# The volume kernel's blocks are 128 or 256 threads wide, 2r + 32 of them at least.
+# The general body's blocks are 128 or 256 threads wide, 2r + 32 of them at least.
 MAX_RADIUS = 112
 
 
@@ -43,6 +49,24 @@ def sad_volume_reference(
     (also at r = 0, where the ops path leaves the volume uint8)."""
     cost = ad_cost_volume(left_gray, right_gray, num_disparities, invalid_cost)
     return aggregate_cost_volume(cost, radius).to(torch.int32)
+
+
+def volume_kernel_body(num_disparities: int, radius: int) -> str:
+    """Which body of the volume kernel ``(num_disparities, radius)`` runs:
+    ``"strips"`` or ``"general"``. Builds the library; needs no card."""
+    return BODIES[_build.load_library().gsm_sad_volume_body(num_disparities, radius)]
+
+
+def volume_launch_plan(shape, num_disparities: int, radius: int, device="cuda") -> dict:
+    """How the volume kernel launches for an ``(H, W)`` pair on ``device``:
+    the fields of :func:`kernels.sad_wta.launch_plan`, and
+    ``disparity_parts``, the parts of the disparity range that separate
+    blocks of one tile take (1 for the general body)."""
+    h, w = shape
+    plan = _plan("gsm_sad_volume_plan", (h, w, num_disparities, radius), device)
+    tiles = -(-h // plan["tile_rows"]) * -(-w // plan["tile_cols"])
+    plan["disparity_parts"] = plan["blocks"] // tiles
+    return plan
 
 
 def _launch_volume(left, right, num_disparities, radius, invalid_cost):

@@ -271,12 +271,12 @@ def test_library_name_tracks_sources_and_flags(monkeypatch, tmp_path):
     monkeypatch.undo()
     assert _build.library_path() == path
     # A copy of the sources names the same library until a source, or the
-    # header that two of them include, is edited: a stale build is not loaded.
+    # header that three of them include, is edited: a stale build is not loaded.
     copy = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, copy)
     monkeypatch.setattr(_build, "CSRC", copy)
     assert _build.library_path() == path
-    for user in ("sad_wta.cu", "sad_wta_key.cu"):
+    for user in ("sad_wta.cu", "sad_wta_key.cu", "split_phase.cu"):
         assert '#include "sad_strips.cuh"' in (copy / user).read_text()
     for name in ("sad_strips.cuh", "sad_wta_key.cu"):
         with open(copy / name, "a") as f:
