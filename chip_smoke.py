@@ -34,10 +34,17 @@ Phases, each printing its own line:
    255}; the line counts the cases each of the kernel's two bodies ran, and
    the phase fails if a body ran none or if (D, r) = (64, 5) does not take
    the strip body;
-9. median kernel vs its plain twin, bit-exact: r in {1, 3, 4, 7, 9, 60}
-   with and without a random valid mask, a mask with all-invalid windows,
-   constant 0 and 255 images, a (2, H, W) batch, 1080x1920 at r=3, 5, and
-   r=127 through ``median_filter_u8(method="auto")``;
+9. median kernel vs its plain twin, bit-exact, on both of its bodies:
+   random images at r in {1, 3, 4, 7, 9, 60} and at 1080x1920 with r=3, 5,
+   then structured images (constant 0 and 255, a 0/255 checkerboard, two
+   levels, a disparity-like map of 0..63 with LR-hole zeros, one odd pixel
+   in a constant field) at shapes that leave ragged tiles (W = 128k + 1, a
+   1-row last tile), W < 4, H < 2r + 1, H = 1, W = 1 and a (2, H, W) batch,
+   every r of the rank-select body, the next r and 60 and 127 on the
+   histogram body; each with no mask, a random valid mask and a mask with
+   all-invalid windows; and r=127 through ``median_filter_u8(method="auto")``.
+   The line counts the cases each body ran, and the phase fails if a body
+   ran none or if r=3 at 1080x1920 does not take the rank-select body;
 10. the bm+ path (D=64, r=5, LR check, median r=3): ``block_matching_pipeline``
    on two 1080x1920 pairs, a ``fused=False`` rig at 720x1280 (``process`` on
    3 pairs, ``process_batch`` on 4), and the ``bm`` CLI on a 1080p PNG pair;
@@ -47,8 +54,11 @@ Phases, each printing its own line:
 11. CUDA-event timings at 1080p of the three bm+ kernels beside their twins
    (the volume kernel with its launch plan, on one pair that stays in the
    L2 and over a ring of 8 pairs that do not, beside a plain fill of the
-   volume's bytes) and of the bm+ frame beside its all-plain run, and the
-   bm+ frame's time by stage;
+   volume's bytes; the median kernel at r = 1, 3, 5 and 7, at 1080p and
+   720p, on a random image and on the bm+ masked disparity map, one image
+   and per image over a ring of 8, with its launch plan and its select
+   loop's instructions per pixel from the SASS) and of the bm+ frame beside
+   its all-plain run, and the bm+ frame's time by stage;
 12. the partial-range key kernel vs its plain twin, bit-exact: edge shapes
    (ragged tiles, B = 1 and 3) with ranges that start at 0, at an odd d and
    end at the total, r in {0, 1, 5, 7}; the structured inputs of phase 3 at
@@ -128,6 +138,9 @@ ODD_KEY_RANGES = {  # total -> (d_start, count): odd counts from odd and even st
 }
 KEY_SHAPES = [(1, 21, 33), (1, 9, 130), (3, 70, 250), (1, 37, 300), (1, 16, 257), (3, 40, 64)]
 MESH_SHAPES = [(1, 1, 1), (1, 1, 4), (1, 4, 1), (2, 2, 2), (1, 2, 4)]
+# W = 128k + 1 and H = 32k + 1 (also 64k + 1) leave a 1-wide and a 1-row last
+# tile; W < 4 and H < 2r + 1; H = 1; W = 1; a batch of 2 that shares its mask.
+MEDIAN_SHAPES = [(65, 257), (5, 3), (1, 300), (300, 1), (2, 33, 129)]
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, data sheet
 PEAK_OPS_PER_S = 67e12      # 32-bit operations outside the tensor cores, data sheet
 
@@ -191,6 +204,36 @@ def shifted_pair(rng, dev, shape, shift: int):
     noise = rng.integers(-2, 3, shape)
     right = np.clip(np.roll(left, -shift, axis=1) + noise, 0, 255).astype(np.uint8)
     return torch.from_numpy(left).to(dev), torch.from_numpy(right).to(dev)
+
+
+def median_images(rng, dev, shape):
+    """(kind, image) inputs on which a median's faults show: constant 0 and
+    255, a 0/255 checkerboard, two levels, a disparity-like map (0..63 in
+    runs of 5 columns, a fifth of it LR-hole zeros), one odd pixel in a
+    constant field."""
+    h, w = shape[-2:]
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint8)).to(dev)
+
+    yield "zeros", put(np.zeros(shape))
+    yield "full", put(np.full(shape, 255))
+    yield "checkerboard", put(np.broadcast_to(np.add.outer(np.arange(h), np.arange(w)) % 2 * 255,
+                                              shape))
+    yield "two-level", put(np.where(rng.random(shape) < 0.5, 37, 200))
+    runs = np.repeat(rng.integers(0, 64, (*shape[:-1], -(-w // 5))), 5, axis=-1)[..., :w]
+    yield "disparity", put(np.where(rng.random(shape) < 0.2, 0, runs))
+    odd = np.full(shape, 90)
+    odd[..., h // 2, w // 2] = 7
+    yield "odd-pixel", put(odd)
+
+
+def median_masks(rng, dev, hw, r):
+    """No mask, a random valid mask, and one with a band of columns that no
+    window inside sees."""
+    hole = torch.ones(hw, dtype=torch.bool, device=dev)
+    hole[:, 5:5 + 2 * min(r, 8) + 3] = False
+    return [None, torch.from_numpy(rng.random(hw) > 0.3).to(dev), hole]
 
 
 def structured_pairs(rng, dev, shape):
@@ -267,6 +310,10 @@ def run_bm_plus_phases(dev, u8, calib) -> list:
     three kernels' entries of the summary line."""
     from gpu_stereo_matching_tpu_torch import BlockMatchingConfig
     from PIL import Image
+    from gpu_stereo_matching_tpu_torch.bench.fused_kernel import (
+        device_ms,
+        select_instructions_per_pixel,
+    )
     from gpu_stereo_matching_tpu_torch.cli.main import main as cli_main
     from gpu_stereo_matching_tpu_torch.kernels import ctmf_median, remap, split_phase
     from gpu_stereo_matching_tpu_torch.models.block_matching import (
@@ -330,9 +377,20 @@ def run_bm_plus_phases(dev, u8, calib) -> list:
         right_views_with_int32_max=right_views,
         max_abs_err_sad_volume=err_e1, max_abs_err_wta=err_e2, ok=True)
 
-    # 9. Median kernel vs its twin.
+    # 9. Median kernel vs its twin, both bodies.
     err_d = 0
     cases = 0
+    bodies = {"rank_select": 0, "histogram": 0}
+
+    def check_d(x, r, m, what):
+        nonlocal err_d, cases
+        got = ctmf_median.median_u8(x, r, m)
+        err_d = max(err_d, differ(got, median_filter_u8(x, r, "histogram", m),
+                                  f"median {tuple(x.shape)} r={r} ({what})"))
+        bodies[ctmf_median.median_kernel_body(r)] += 1
+        cases += 1
+        return got
+
     for shape, r in [((70, 250), 1), ((70, 250), 3), ((70, 250), 4), ((70, 250), 7),
                      ((70, 250), 9), ((150, 260), 60), ((2, 33, 150), 3),
                      ((1080, 1920), 3), ((1080, 1920), 5)]:
@@ -341,16 +399,22 @@ def run_bm_plus_phases(dev, u8, calib) -> list:
         hole = torch.ones(shape[-2:], dtype=torch.bool, device=dev)
         hole[5:30, 10:150] = False  # windows inside see no valid pixel
         for m in (None, mask, hole):
-            got = ctmf_median.ctmf_median_u8(x, r, m)
-            err_d = max(err_d, differ(got, median_filter_u8(x, r, "histogram", m),
-                                      f"median {shape} r={r}"))
-            cases += 1
+            got = check_d(x, r, m, "random")
             if m is hole and r <= 4 and not bool((got[..., 5 + r:30 - r, 10 + r:150 - r] == 255).all()):
                 raise AssertionError("an all-invalid window did not give 255")
+    small = max(r for r in range(1, 128) if ctmf_median.median_kernel_body(r) == "rank_select")
+    structured = 0
+    for shape in MEDIAN_SHAPES:
+        for r in [*range(1, small + 1), small + 1, 60, 127]:
+            for m in median_masks(rng, dev, shape[-2:], r):
+                for kind, x in median_images(rng, dev, shape):
+                    check_d(x, r, m, kind)
+                    structured += 1
     for value in (0, 255):
         x = torch.full((70, 250), value, dtype=torch.uint8, device=dev)
         for r in (3, 60):
             err_d = max(err_d, differ(ctmf_median.ctmf_median_u8(x, r), x, f"median constant {value}"))
+            bodies[ctmf_median.median_kernel_body(r)] += 1
             cases += 1
     # Past the JAX kernel's r <= 60, "auto" takes the kernel up to r = 127.
     x = u8((150, 300))
@@ -359,8 +423,15 @@ def run_bm_plus_phases(dev, u8, calib) -> list:
     if ctmf_median.LAUNCHES != before + 1:
         raise AssertionError("median_filter_u8(auto) at r=127 did not launch the kernel")
     err_d = max(err_d, differ(got, median_filter_u8(x, 127, "histogram"), "median r=127"))
+    bodies["histogram"] += 1
     cases += 1
-    log("9-median-vs-twin", cases=cases, max_abs_err=err_d, ok=True)
+    plan_1080_r3 = ctmf_median.median_launch_plan((1080, 1920), 3, dev)
+    if not all(bodies.values()) or plan_1080_r3["body"] != "rank_select":
+        raise AssertionError(f"phase 9 must cover both bodies, r=3 at 1080p on rank select: "
+                             f"{bodies}, {plan_1080_r3}")
+    log("9-median-vs-twin", cases=cases, structured_cases=structured, cases_by_body=bodies,
+        rank_select_radii=[1, small], body_of_1080p_r3=plan_1080_r3["body"], max_abs_err=err_d,
+        ok=True)
 
     # 10. The bm+ path through its three entry points, counters from 0.
     cfg = BlockMatchingConfig(num_disparities=64, sad_radius=5, lr_consistency=True,
@@ -471,15 +542,12 @@ def run_bm_plus_phases(dev, u8, calib) -> list:
     p_e2 = cuda_ms(lambda: wta_disparity(vol))
     lib_e2 = cuda_ms(lambda: torch.argmin(vol, dim=0))  # the yardstick, used nowhere in the port
     img = u8((1080, 1920))
-    t_d = {r: cuda_ms(lambda: ctmf_median.ctmf_median_u8(img, r)) for r in (3, 7)}
     p_d = {r: cuda_ms(lambda: median_filter_u8(img, r, "histogram"), reps=3) for r in (3, 7)}
     log("11-time", kernel="sad_volume", shape=[1080, 1920, 64, 5], ms=t_e1, plain_ms=p_e1,
         ms_per_pair_over_a_ring_of_8=t_e1_ring, fill_of_the_same_bytes_ms=t_fill,
         plan=split_phase.volume_launch_plan((1080, 1920), 64, 5, dev),
         general_body_plan_at_r_8=split_phase.volume_launch_plan((1080, 1920), 64, 8, dev))
     log("11-time", kernel="wta_from_sad", shape=[1080, 1920, 64, 5], ms=t_e2, plain_ms=p_e2)
-    for r in (3, 7):
-        log("11-time", kernel="ctmf_median", shape=[1080, 1920], radius=r, ms=t_d[r], plain_ms=p_d[r])
     t_bm = cuda_ms(lambda: block_matching_pipeline(l1, r1, cfg))
     p_bm = cuda_ms(lambda: block_matching_reference(l1, r1, cfg), reps=3)
     log("11-time", path="bm+", shape=[1080, 1920, 64, 5], median_radius=3, ms_per_frame=t_bm,
@@ -498,7 +566,48 @@ def run_bm_plus_phases(dev, u8, calib) -> list:
     }
     log("11-time", path="bm+ by stage", shape=[1080, 1920, 64, 5], stages_ms=stages,
         sum_ms=sum(stages.values()), frame_ms=t_bm)
-    del vol
+    del vol, disp, disp_r
+    torch.cuda.empty_cache()
+
+    # The median kernel alone: random images and the bm+ masked disparity
+    # map, one image (which stays in the L2) and per image over a ring of 8
+    # (the map's ring: the map rolled along its rows by 8 offsets).
+    def masked_map(left, right):
+        v = split_phase.sad_volume(left, right, 64, 5)
+        d = split_phase.wta_from_sad(v)
+        d_r = split_phase.wta_from_sad(_right_view_sad(v))
+        return torch.where(lr_consistency_mask(d, d_r, 1), d, 0).to(torch.uint8)
+
+    maps = {(1080, 1920): masked.to(torch.uint8),
+            (720, 1280): masked_map(*shifted_pair(rng, dev, (720, 1280), 9))}
+    del masked
+    torch.cuda.empty_cache()
+    t_d, dev_d = {}, {}
+    instructions = {}
+    for hw, bm_map in maps.items():
+        inputs = {"random": [u8(hw) for _ in range(8)],
+                  "bm_plus_map": [torch.roll(bm_map, 97 * k, dims=1) for k in range(8)]}
+        for r in (1, 3, 5, 7):
+            ms = {}
+            for kind, ring in inputs.items():
+                def run_ring():
+                    return [ctmf_median.ctmf_median_u8(x, r) for x in ring]
+
+                ms[kind] = {
+                    "one_image": cuda_ms(lambda: ctmf_median.ctmf_median_u8(ring[0], r)),
+                    "per_image_over_a_ring_of_8": cuda_ms(run_ring) / len(ring),
+                    # A launch can take less than its enqueue: the device's own time.
+                    "device_per_image": device_ms(run_ring, 5)}
+            plan = ctmf_median.median_launch_plan(hw, r, dev)
+            if plan["body"] == "rank_select":
+                instructions[r] = select_instructions_per_pixel(r, plan)
+            if hw == (1080, 1920):
+                t_d[r] = ms["random"]["one_image"]
+                dev_d[r] = ms["random"]["device_per_image"]
+            log("11-time", kernel="ctmf_median", shape=[*hw], radius=r, ms=ms,
+                plain_ms=p_d.get(r) if hw == (1080, 1920) else None, plan=plan,
+                select_instructions_per_pixel=instructions.get(r))
+    del maps, inputs
     torch.cuda.empty_cache()
 
     px = 1080 * 1920
@@ -512,10 +621,14 @@ def run_bm_plus_phases(dev, u8, calib) -> list:
                      launches["wta_from_sad"], err_e2, t_e2, p_e2,
                      bound(2 * 64 * px, (4 * 64 + 4) * px), lib_e2, [64, 1080, 1920]),
         # Huang's form at r=3: 2 (2r + 1) histogram updates and a 32-bin scan
-        # per pixel; 1 byte in, 1 out.
-        kernel_entry("ctmf_median_u8", "ctmf_median.cu", "ctmf_median.py:169",
-                     launches["ctmf_median"], err_d, t_d[3], p_d[3],
-                     bound((2 * 7 + 32) * px, 2 * px), None, [1080, 1920, 3]),
+        # per pixel; 1 byte in, 1 out. The least work of the function, so the
+        # entry stays comparable with earlier runs; the rank-select body's own count
+        # is its select loop's SASS. One launch can take less than its
+        # enqueue, so the entry adds the device time under the profiler.
+        {**kernel_entry("ctmf_median_u8", "ctmf_median.cu", "ctmf_median.py:169",
+                        launches["ctmf_median"], err_d, t_d[3], p_d[3],
+                        bound((2 * 7 + 32) * px, 2 * px), None, [1080, 1920, 3]),
+         "device_ms": dev_d[3], "select_instructions_per_pixel": instructions.get(3)},
     ]
 
 

@@ -1,5 +1,6 @@
 """Time a block-matching kernel on the card, one JSON line per shape: the
-fused SAD + WTA kernel, the key kernel or the SAD-volume kernel.
+fused SAD + WTA kernel, the key kernel, the SAD-volume kernel or the median
+kernel.
 
 For each ``BxHxW`` shape: the kernel's launch plan (body, tile, blocks,
 blocks per SM, waves), whether its result equals the plain twin's on the
@@ -14,13 +15,22 @@ over that range instead (``--disparities`` is then not read). With
 ``--volume`` it times the SAD-volume kernel of the bm+ path, which takes
 one pair a launch: a ``BxHxW`` shape is then a ring of B pairs launched in
 turn, so B=1 reruns one pair that stays in the L2 and a larger B does not.
+With ``--median R`` it times the median kernel at radius R the same way, a
+``BxHxW`` shape being a ring of B random u8 images launched one at a time,
+as the bm+ path launches it once per frame; its line adds the kernel's
+device time per launch under ``torch.profiler`` (a launch can take less
+than the host's enqueue) and, for the rank-select body, the select loop's
+instructions per pixel from the library's SASS.
 To compare two trees, run each tree's module in turns on one card.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -29,7 +39,8 @@ import numpy as np
 import torch
 
 from gpu_stereo_matching_tpu_torch.device import resolve_device
-from gpu_stereo_matching_tpu_torch.kernels import sad_wta, split_phase
+from gpu_stereo_matching_tpu_torch.kernels import _build, ctmf_median, sad_wta, split_phase
+from gpu_stereo_matching_tpu_torch.ops.postprocess import median_filter_u8
 
 DEFAULT_SHAPES = ("1x1080x1920", "32x1080x1920", "1x720x1280", "8x720x1280")
 
@@ -40,6 +51,53 @@ def card() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+@functools.lru_cache(maxsize=None)
+def _sass(library: str) -> str:
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    return subprocess.run([cuobjdump, "-sass", library], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+
+
+def select_instructions_per_pixel(radius: int, plan: dict) -> float:
+    """The median's rank-select body at ``radius``, read from the built
+    library's SASS (``cuobjdump -sass``): the instructions of its 8-pass
+    select loop (the longest loop that holds no other branch), times 8, over
+    the 4 x rows-per-thread pixels a thread selects. Staging, the ranks and
+    the store are left out."""
+    body = re.split(r"\n\s*Function : ", _sass(str(_build.build())))
+    body = next(b for b in body if b.startswith("_") and f"rank_select_kernelILi{radius}E" in
+                b.split("\n", 1)[0])
+    ins = re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)
+    at = {int(a, 16): i for i, (a, _) in enumerate(ins)}
+    loop = 0
+    for i, (_, op) in enumerate(ins):
+        target = re.search(r"BRA.*?0x([0-9a-f]+)", op)
+        start = at.get(int(target.group(1), 16), i) if target else i
+        if start < i and not any("BRA" in o for _, o in ins[start:i]):
+            loop = max(loop, i - start + 1)
+    rows_per_thread = plan["tile_rows"] // (plan["threads"] // 32)
+    return loop * 8 / (4 * rows_per_thread)
+
+
+def device_ms(fn, reps: int):
+    """Mean device time of the kernels that ``reps`` calls of ``fn()`` launch,
+    under ``torch.profiler`` after a warm-up; None when the profiler sees no
+    device time. The mean is over the kernels the profiler reports, which in
+    a short window can be fewer than were launched."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e.time_range.end - e.time_range.start for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    return sum(kernels) / len(kernels) / 1e3 if kernels else None
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -67,13 +125,15 @@ def main(argv=None) -> int:
                    help="time the key kernel over this range, not the whole-range kernel")
     p.add_argument("--volume", action="store_true",
                    help="time the SAD-volume kernel, one launch per pair of the batch")
+    p.add_argument("--median", type=int, metavar="R",
+                   help="time the median kernel at radius R, one launch per image of the batch")
     p.add_argument("--radius", type=int, default=5)
     p.add_argument("--reps", type=int, default=7)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda", help="cuda or cuda:N")
     args = p.parse_args(argv)
-    if args.key and args.volume:
-        p.error("--key and --volume exclude each other")
+    if sum(bool(a) for a in (args.key, args.volume, args.median)) > 1:
+        p.error("--key, --volume and --median exclude each other")
     dev = resolve_device(args.device)
     if dev.type != "cuda":
         raise RuntimeError("fused_kernel: the kernel runs on a CUDA device only")
@@ -83,7 +143,15 @@ def main(argv=None) -> int:
         shape = tuple(int(n) for n in spec.split("x"))
         left = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
         right = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
-        if args.key:
+        if args.median:
+            name, what = "ctmf_median_u8", {}
+            run = lambda: [ctmf_median.median_u8(x, args.median) for x in left]  # noqa: E731
+            want = median_filter_u8(left[0], args.median, "histogram")
+            plan = ctmf_median.median_launch_plan(shape[1:], args.median, dev)
+            if plan["body"] == "rank_select":
+                what["select_instructions_per_pixel"] = select_instructions_per_pixel(
+                    args.median, plan)
+        elif args.key:
             d_start, count, total = (int(n) for n in args.key.split(","))
             name, what = "fused_block_matching_key", {"range": [d_start, count, total]}
             run = lambda: sad_wta.fused_block_matching_key(  # noqa: E731
@@ -107,8 +175,12 @@ def main(argv=None) -> int:
             plan = sad_wta.launch_plan(shape, args.disparities, args.radius, dev)
         equals_twin = torch.equal(run()[0], want)
         ms = cuda_ms(run, args.reps)
+        if args.median:
+            # A launch can take less than its enqueue: the device's own time.
+            what["device_ms_per_frame"] = device_ms(run, args.reps)
         print(json.dumps({
-            "kernel": name, "shape": list(shape), **what, "radius": args.radius,
+            "kernel": name, "shape": list(shape), **what,
+            "radius": args.median or args.radius,
             "plan": plan,
             "equals_twin_on_frame_0": equals_twin, "ms_per_frame": ms / shape[0],
             "card": smi,

@@ -14,7 +14,11 @@ that the JAX package sends past its CTMF kernel to the histogram path
 (60 < r) still run on the card.
 
 A tensor on the CPU runs the plain twin; a CUDA tensor launches the kernel
-(one launch over all leading dimensions) or raises.
+(one launch over all leading dimensions) or raises. The kernel has two
+hand-written bodies: a bitwise rank select on packed bytes from a staged
+tile (radius 1..7) and a running histogram (every other radius). The
+choice is made in C from the radius alone; :func:`median_kernel_body` and
+:func:`median_launch_plan` say which one a radius takes and how it launches.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from typing import Optional
 import torch
 
 from gpu_stereo_matching_tpu_torch.kernels import _build
+from gpu_stereo_matching_tpu_torch.kernels.sad_wta import _plan
 from gpu_stereo_matching_tpu_torch.ops.postprocess import median_filter_u8
 
 # Kernel launches since import (or since a caller reset it to 0).
@@ -31,6 +36,21 @@ LAUNCHES = 0
 
 MAX_RADIUS = 60  # the contract of the JAX package's ctmf_median_u8
 KERNEL_MAX_RADIUS = 127  # (2r+1)**2 <= 65535: counts fit the uint16 bins
+BODIES = ("histogram", "rank_select")
+
+
+def median_kernel_body(radius: int) -> str:
+    """Which body of the kernel ``radius`` runs: ``"rank_select"`` or
+    ``"histogram"``. Builds the library; needs no card."""
+    return BODIES[_build.load_library().gsm_median_body(radius)]
+
+
+def median_launch_plan(shape, radius: int, device="cuda") -> dict:
+    """How the kernel launches for a ``(H, W)`` or ``(B, H, W)`` image on
+    ``device``: the fields of :func:`kernels.sad_wta.launch_plan` (body,
+    tile, threads, blocks, blocks per SM, SMs, waves)."""
+    b, h, w = (1, *shape) if len(shape) == 2 else shape
+    return _plan("gsm_median_plan", (b, h, w, radius), device, BODIES)
 
 
 def _launch(x: torch.Tensor, radius: int, valid_mask: Optional[torch.Tensor]) -> torch.Tensor:
