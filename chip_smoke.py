@@ -13,18 +13,33 @@ Phases, each printing its own line:
    and B = 3; the line counts the cases each of the kernel's two bodies
    ran, and the phase fails if a body ran none or if (D, r) = (64, 5) does
    not take the strip body;
-4. remap kernel vs its plain twin at 720x1280 through a rig's maps;
-5. gray conversion on the card vs on the CPU over all 2**24 BGR triples;
+4. the remap kernel's two entries vs their plain twins, bit-exact: the u8
+   entry and the rig's front end (BGR -> gray -> remap of both views in one
+   launch) through both views' maps of a 720x1280 rig at B = 1, 3 and 8,
+   then on ragged shapes (Ho * Wo no multiple of 4, odd widths, Ho != Hs,
+   B = 3, a source base 1-3 bytes off word alignment, a map off its 16-byte
+   alignment) through maps with NaN, coordinates past int32, exact last-row
+   and last-column coordinates and negative fractions; the line counts the
+   cases each of the two bodies ran, and the phase fails if a body ran none
+   or if 720p does not take the vector body;
+5. the gray kernel vs the plain twin on the CPU over all 2**24 BGR triples in
+   both conventions, and on ragged lengths and unaligned bases (both of its
+   bodies); and the plain twin on the card vs on the CPU;
 6. the main path: a 720x1280, D=64, r=5 StereoRig from a synthetic
    calibration runs ``process`` on 3 pairs (with a ``StageTimer``, which
    must hold one fenced ``"frame"`` span per pair) and ``process_batch`` on
-   8; results bit-exact against the plain path on the card, and both
-   kernels' launch counters must have risen during this phase;
+   8; results bit-exact against the plain path on the card; the counters,
+   set to 0 just before, must read one front-end launch and one fused-kernel
+   launch per call and no gray or u8-remap launch;
 7. CUDA-event timings (warmed, median of several runs) of each kernel beside
    its plain twin and of the rig, printed as JSON lines, with the fused
-   kernel's launch plan (body, tile, blocks, blocks per SM, waves); then 10
-   batches of the rig under ``torch.profiler``: device time per call by
-   part (fused kernel, remap, gray and the rest) and the idle share;
+   kernel's and the front end's launch plans (body, tile or pixels a thread,
+   blocks, blocks per SM, waves); the gray kernel, the u8 remap and the
+   front end also as device time under ``torch.profiler``, the front end
+   beside the composition it replaces (the plain gray on the card, then a u8
+   remap launch per view); then 10 batches of the rig under
+   ``torch.profiler``: device time per call by part (fused kernel, front
+   end, the rest) and the idle share;
 8. split-phase SAD volume and argmin kernels vs their plain twins on the
    card, bit-exact, on the edge shapes and at 1080x1920 D=64 r=5; the
    argmin also on right-view volumes, which hold INT32_MAX. Then the volume
@@ -50,7 +65,8 @@ Phases, each printing its own line:
    3 pairs, ``process_batch`` on 4), and the ``bm`` CLI on a 1080p PNG pair;
    each bit-exact against the same path with every kernel replaced by its
    plain twin; the counters are set to 0 before each entry point and must
-   read its exact launches just after it;
+   read its exact launches just after it (the rig's front end once a call,
+   the CLI's gray kernel once an image);
 11. CUDA-event timings at 1080p of the three bm+ kernels beside their twins
    (the volume kernel with its launch plan, on one pair that stays in the
    L2 and over a ring of 8 pairs that do not, beside a plain fill of the
@@ -96,6 +112,7 @@ sheet gives no separate integer rate). Operations are counted from the
 separable running-sum form: per pixel and disparity 2 for the absolute
 difference, 2 for the vertical and 2 for the horizontal running sum, plus
 2 for the (min, argmin) update or 3 for the packed key and its minimum.
+For the gray and remap kernels a fused multiply-add counts 2.
 
 Then one JSON line with the kernels' summary, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
@@ -141,6 +158,14 @@ MESH_SHAPES = [(1, 1, 1), (1, 1, 4), (1, 4, 1), (2, 2, 2), (1, 2, 4)]
 # W = 128k + 1 and H = 32k + 1 (also 64k + 1) leave a 1-wide and a 1-row last
 # tile; W < 4 and H < 2r + 1; H = 1; W = 1; a batch of 2 that shares its mask.
 MEDIAN_SHAPES = [(65, 257), (5, 3), (1, 300), (300, 1), (2, 33, 129)]
+# (Hs, Ws, Ho, Wo, B, source byte offset, map aligned): Ho * Wo % 4 != 0 with
+# odd widths; whole threads with an odd source width and Ho != Hs; B = 1; a
+# map one float off its 16-byte alignment (the scalar body on a shape the
+# vector body takes); several blocks, ragged.
+REMAP_CASES = [
+    (23, 31, 13, 37, 3, 1, True), (20, 33, 16, 24, 3, 3, True), (9, 10, 8, 8, 1, 0, True),
+    (24, 32, 24, 32, 3, 2, False), (70, 45, 61, 67, 2, 0, True), (33, 257, 35, 129, 3, 1, True),
+]
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, data sheet
 PEAK_OPS_PER_S = 67e12      # 32-bit operations outside the tensor cores, data sheet
 
@@ -152,6 +177,40 @@ def bound(operations: float, nbytes: float) -> dict:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def remap_work(frames: int, n: int, views: int, bgr: bool) -> tuple:
+    """(operations, bytes) of one launch of the remap kernel over ``views``
+    views of ``frames`` frames of ``n`` output pixels. Per output pixel once
+    a launch: the maps (8 bytes), two floors, four subtractions and four
+    compares (10 operations). Per pixel and frame: 1 (gray) or 3 (BGR) bytes
+    in and 1 out; the interpolation's 6 multiplies, 3 adds, the rounding and
+    2 clamps (12); from BGR, each of the 4 taps turned into gray first, a
+    multiply, two fused multiply-adds, the rounding and 2 clamps (8)."""
+    per_frame = 12 + (4 * 8 if bgr else 0)
+    return (views * (10 * n + frames * n * per_frame),
+            views * (8 * n + frames * n * ((3 if bgr else 1) + 1)))
+
+
+def gray_work(pixels: int) -> tuple:
+    """(operations, bytes) of the gray kernel: per pixel a multiply, two
+    fused multiply-adds, the rounding and 2 clamps (8 operations); 3 bytes in,
+    1 out."""
+    return 8 * pixels, 4 * pixels
+
+
+def device_ms_per_call(fn, repeats: int = 10):
+    """Device time per call of ``fn()`` under ``torch.profiler`` (all the
+    kernels it launches), with the kernels the profiler saw a call."""
+    prof = device_profile(fn, repeats, lambda name: "all")
+    if not prof["device_time_seen"]:
+        return None, 0
+    return prof["busy_ms"] / repeats, prof["device_kernels"] / repeats
+
+
+def ratio(x, k):
+    """x / k, or None where x was not measured."""
+    return None if x is None else x / k
 
 
 def log(phase: str, **fields) -> None:
@@ -236,6 +295,20 @@ def median_masks(rng, dev, hw, r):
     return [None, torch.from_numpy(rng.random(hw) > 0.3).to(dev), hole]
 
 
+def wild_maps(rng, hs, ws, ho, wo):
+    """(Ho, Wo) float32 maps over and past a (Hs, Ws) source, with NaN,
+    coordinates past int32, exact last-row and last-column coordinates,
+    negative fractions and integer coordinates."""
+    mx = rng.uniform(-2.5, ws + 1.5, (ho, wo)).astype(np.float32)
+    my = rng.uniform(-2.5, hs + 1.5, (ho, wo)).astype(np.float32)
+    special = [(np.nan, 1.5), (1.5, np.nan), (3e9, 1.5), (1.5, -3e9), (2.0**31, 2.5),
+               (ws - 1, 1.5), (1.25, hs - 1), (ws - 2, hs - 2), (-0.25, 2.5), (2.75, -0.5),
+               (3.0, 4.0)]
+    for k, (x, y) in enumerate(special):
+        mx.flat[k], my.flat[k] = x, y
+    return mx, my
+
+
 def structured_pairs(rng, dev, shape):
     """(kind, left, right) inputs on which a matcher's faults show: every d
     ties (constant: the answer is 0), ties almost everywhere (two levels),
@@ -285,7 +358,9 @@ def rig_part(name: str) -> str:
     """The part of a rig batch that a device kernel belongs to."""
     if "strip_kernel" in name or "sad_wta_kernel" in name:
         return "fused_sad_wta"
-    return "remap" if "remap" in name else "gray_and_rest"
+    if "front_end_kernel" in name:
+        return "front_end"
+    return "rest"
 
 
 def step_part(name: str) -> str:
@@ -307,7 +382,8 @@ def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, bnd, libra
 def run_bm_plus_phases(dev, u8, calib) -> list:
     """Phases 8-11: the split-phase and median kernels vs their twins, the
     bm+ path through its three entry points, and the timings. Returns the
-    three kernels' entries of the summary line."""
+    three kernels' entries of the summary line and the launches of phase 10
+    by kernel."""
     from gpu_stereo_matching_tpu_torch import BlockMatchingConfig
     from PIL import Image
     from gpu_stereo_matching_tpu_torch.bench.fused_kernel import (
@@ -315,7 +391,7 @@ def run_bm_plus_phases(dev, u8, calib) -> list:
         select_instructions_per_pixel,
     )
     from gpu_stereo_matching_tpu_torch.cli.main import main as cli_main
-    from gpu_stereo_matching_tpu_torch.kernels import ctmf_median, remap, split_phase
+    from gpu_stereo_matching_tpu_torch.kernels import ctmf_median, gray, remap, split_phase
     from gpu_stereo_matching_tpu_torch.models.block_matching import (
         _right_view_sad,
         block_matching_pipeline,
@@ -453,30 +529,30 @@ def run_bm_plus_phases(dev, u8, calib) -> list:
 
     def counted(what, want, run):
         """Run one entry point with every counter at 0; its launches must be
-        exactly ``want``: E1 once, E2 twice and D once per frame, remap once
-        per view and call."""
+        exactly ``want``: E1 once, E2 twice and D once per frame, the front
+        end once per rig call, the gray kernel once per image loaded, the u8
+        remap never."""
         split_phase.LAUNCHES.update(sad_volume=0, wta_from_sad=0)
-        ctmf_median.LAUNCHES = 0
-        remap.LAUNCHES = 0
+        ctmf_median.LAUNCHES = remap.LAUNCHES = remap.PAIR_LAUNCHES = gray.LAUNCHES = 0
         out = run()
         torch.cuda.synchronize()
         got = {**split_phase.LAUNCHES, "ctmf_median": ctmf_median.LAUNCHES,
-               "remap": remap.LAUNCHES}
+               "front_end": remap.PAIR_LAUNCHES, "gray": gray.LAUNCHES, "remap_u8": remap.LAUNCHES}
         if got != want:
             raise AssertionError(f"{what} launched {got}, not {want}")
         return out, got
 
-    def per_frame(frames, remaps):
+    def per_frame(frames, front_ends=0, grays=0):
         return {"sad_volume": frames, "wta_from_sad": 2 * frames, "ctmf_median": frames,
-                "remap": remaps}
+                "front_end": front_ends, "gray": grays, "remap_u8": 0}
 
-    disp2, n_pipeline = counted("block_matching_pipeline", per_frame(2, 0),
+    disp2, n_pipeline = counted("block_matching_pipeline", per_frame(2),
                                 lambda: block_matching_pipeline(left2, right2, cfg))
     (rig_singles, rig_batch), n_rig = counted(
-        "fused=False rig", per_frame(3 + 4, 2 * 3 + 2),
+        "fused=False rig", per_frame(3 + 4, front_ends=3 + 1),
         lambda: ([rig.process(l, r) for l, r in rig_pairs], rig.process_batch(rig_lb, rig_rb)))
     cli_rc, n_cli = counted(
-        "bm CLI", per_frame(1, 0),
+        "bm CLI", per_frame(1, grays=2),
         lambda: cli_main(["bm", lp, rp, op, "--lr-check", "--median-radius", "3",
                           "--device", "cuda"]))
     if cli_rc != 0:
@@ -611,7 +687,7 @@ def run_bm_plus_phases(dev, u8, calib) -> list:
     torch.cuda.empty_cache()
 
     px = 1080 * 1920
-    return [
+    return launches, [
         # 6 operations per pixel and disparity; 2 bytes in, 4 * D out per pixel.
         kernel_entry("sad_volume", "split_phase.cu", "split_phase.py:92", launches["sad_volume"],
                      err_e1, t_e1, p_e1, bound(6 * 64 * px, (2 + 4 * 64) * px), None,
@@ -883,10 +959,11 @@ def main() -> int:
         return 1
     # Before any output: without the package beside it the script prints nothing.
     from gpu_stereo_matching_tpu_torch import BlockMatchingConfig
-    from gpu_stereo_matching_tpu_torch.kernels import _build, remap, sad_wta
+    from gpu_stereo_matching_tpu_torch.kernels import _build, gray, remap, sad_wta
     from gpu_stereo_matching_tpu_torch.models.streaming import StereoRig
-    from gpu_stereo_matching_tpu_torch.ops.color import gray_blockmatching_bgr, gray_rec601_bgr
+    from gpu_stereo_matching_tpu_torch.ops import color
     from gpu_stereo_matching_tpu_torch.ops.remap import remap_bilinear_u8
+    from gpu_stereo_matching_tpu_torch.ops.remap import rectify_gray_pair as plain_front_end
     from gpu_stereo_matching_tpu_torch.utils.profiling import StageTimer
 
     smi = subprocess.run(
@@ -941,56 +1018,114 @@ def main() -> int:
         structured_cases=structured, cases_by_body=bodies, body_of_64_5=sad_wta.kernel_body(64, 5),
         max_abs_err=err_a, ok=True)
 
-    # 4. Kernel B vs its plain twin, through a real-size rig's maps.
+    # 4. Kernel B's two entries vs their twins: the rig's maps at 720p, then
+    # ragged shapes through wild maps; cases counted per body.
     size_hw, num_d, radius = (720, 1280), 64, 5
     cfg = BlockMatchingConfig(num_disparities=num_d, sad_radius=radius)
     rig = StereoRig(synthetic_calibration(), size_hw, cfg, device=dev)
-    err_b = 0
-    src = u8((3, *size_hw))
-    for mx, my in ((rig.left_map_x, rig.left_map_y), (rig.right_map_x, rig.right_map_y)):
-        got = remap.remap_bilinear_u8_direct(src, mx, my)
-        want = remap_bilinear_u8(src, mx, my)
+    rig_maps = (rig.left_map_x, rig.left_map_y, rig.right_map_x, rig.right_map_y)
+    remap_bodies = {entry: dict.fromkeys(remap.BODIES, 0) for entry in ("u8", "front_end")}
+
+    def check_b(entry, frames, maps, what):
+        """One launch of ``entry`` against its twin; returns the body it ran."""
+        before = dict(remap.BODY_LAUNCHES)
+        if entry == "u8":
+            got, want = [remap.remap_bilinear_u8_direct(frames[0], *maps[:2])], \
+                [remap_bilinear_u8(frames[0], *maps[:2])]
+        else:
+            got = remap.rectify_gray_pair(frames[0], frames[1], *maps)
+            want = plain_front_end(frames[0], frames[1], *maps)
         torch.cuda.synchronize()
-        err_b = max(err_b, int((got.int() - want.int()).abs().max()))
+        for g, w in zip(got, want):
+            if g.shape != w.shape or not torch.equal(g, w):
+                raise AssertionError(f"remap {entry} differs from its twin ({what})")
+        body = next(k for k in remap.BODIES if remap.BODY_LAUNCHES[k] == before[k] + 1)
+        remap_bodies[entry][body] += 1
+        return body
+
+    rig_bodies = set()
+    for b in (1, 3, 8):
+        src = u8((b, *size_hw))
+        for view in (0, 1):
+            rig_bodies.add(check_b("u8", [src], rig_maps[2 * view:2 * view + 2],
+                                   f"rig view {view}, B={b}"))
+        rig_bodies.add(check_b("front_end", [u8((b, *size_hw, 3)), u8((b, *size_hw, 3))], rig_maps,
+                               f"rig, B={b}"))
+    rng_b = np.random.default_rng(SEED + 4)
+    for hs, ws, ho, wo, b, offset, aligned in REMAP_CASES:
+        maps = []
+        for _ in range(2):
+            for m in wild_maps(rng_b, hs, ws, ho, wo):
+                t = torch.from_numpy(m).to(dev)
+                if not aligned:  # the same map one float off its 16-byte alignment
+                    t = torch.cat([t.reshape(-1)[:1], t.reshape(-1)])[1:].view(ho, wo)
+                maps.append(t)
+        for channels, entry in ((None, "u8"), (3, "front_end")):
+            shape = (b, hs, ws) if channels is None else (b, hs, ws, channels)
+            frames = [u8(offset + int(np.prod(shape)))[offset:].view(shape) for _ in range(2)]
+            for view in (0, 1) if entry == "u8" else (0,):
+                check_b(entry, frames[view:], maps[2 * view:] if entry == "u8" else maps,
+                        f"{(hs, ws, ho, wo, b, offset, aligned)}")
     valid_share = float((remap_bilinear_u8(torch.full(size_hw, 255, dtype=torch.uint8, device=dev),
                                            rig.left_map_x, rig.left_map_y) > 0).float().mean())
-    if err_b != 0:
-        raise AssertionError(f"remap kernel differs from its twin: {err_b}")
+    if not all(all(v.values()) for v in remap_bodies.values()) or rig_bodies != {"vector"}:
+        raise AssertionError(f"phase 4 must cover both bodies of each entry and take the vector "
+                             f"body at 720p: {remap_bodies}, {rig_bodies}")
     if valid_share < 0.8:
         raise AssertionError(f"rectification maps keep only {valid_share:.3f} of the frame")
-    log("4-remap-kernel-vs-twin", shape=[3, *size_hw], max_abs_err=err_b,
-        valid_share=valid_share, ok=True)
+    log("4-remap-kernel-vs-twin", rig=[*size_hw], batches=[1, 3, 8],
+        ragged_cases=len(REMAP_CASES), cases_by_entry_and_body=remap_bodies,
+        body_at_720p=rig_bodies.pop(), max_abs_err=0, valid_share=valid_share, ok=True)
 
-    # 5. Gray on the card vs on the CPU over all 2**24 BGR triples.
+    # 5. Kernel G vs the twin on the CPU over all 2**24 BGR triples, then on
+    # ragged lengths and unaligned bases; the twin on the card vs the CPU.
     v = np.arange(1 << 24, dtype=np.uint32)
     triples = np.stack([(v >> 16) & 255, (v >> 8) & 255, v & 255], axis=-1)
     triples = torch.from_numpy(triples.astype(np.uint8).reshape(4096, 4096, 3))
-    for fn in (gray_blockmatching_bgr, gray_rec601_bgr):
-        if not torch.equal(fn(triples.to(dev)).cpu(), fn(triples)):
-            raise AssertionError(f"{fn.__name__} differs between the card and the CPU")
-    log("5-gray-card-vs-cpu", triples=1 << 24, ok=True)
+    gray_bodies = dict.fromkeys(gray.BODIES, 0)
+    for name in ("gray_blockmatching_bgr", "gray_rec601_bgr"):
+        want = getattr(color, name)(triples)
+        on_card = triples.to(dev)
+        if not torch.equal(getattr(gray, name)(on_card).cpu(), want):
+            raise AssertionError(f"gray kernel {name} differs from its twin")
+        if not torch.equal(getattr(color, name)(on_card).cpu(), want):
+            raise AssertionError(f"{name} differs between the card and the CPU")
+        gray_bodies[gray.gray_kernel_body(on_card, torch.empty_like(on_card[..., 0]))] += 1
+        flat = on_card.reshape(-1)
+        for n in (1, 15, 16, 17, 4099, 1 << 20):
+            for offset in (0, 1, 3, 16):
+                img = flat[offset:offset + 3 * n].view(n, 3)
+                out = torch.empty(n, dtype=torch.uint8, device=dev)
+                gray_bodies[gray.gray_kernel_body(img, out)] += 1
+                if not torch.equal(getattr(gray, name)(img).cpu(), getattr(color, name)(img.cpu())):
+                    raise AssertionError(f"gray kernel {name} differs at n={n}, offset {offset}")
+        del on_card, flat
+    if not all(gray_bodies.values()):
+        raise AssertionError(f"phase 5 must cover both bodies of the gray kernel: {gray_bodies}")
+    log("5-gray-kernel-vs-twin", triples=1 << 24, conventions=2, cases_by_body=gray_bodies,
+        max_abs_err=0, twin_card_equals_cpu=True, ok=True)
 
     # 6. The main path.
     pairs = [(u8((*size_hw, 3)), u8((*size_hw, 3))) for _ in range(3)]
     lb, rb = u8((8, *size_hw, 3)), u8((8, *size_hw, 3))
     torch.cuda.synchronize()
-    sad_wta.LAUNCHES = 0
-    remap.LAUNCHES = 0
+    sad_wta.LAUNCHES = remap.LAUNCHES = remap.PAIR_LAUNCHES = gray.LAUNCHES = 0
     timer = StageTimer()
     singles = [rig.process(l, r, timer=timer) for l, r in pairs]
-    launches = {"sad_wta_single": sad_wta.LAUNCHES}
+    launches = {"sad_wta_single": sad_wta.LAUNCHES, "front_end_single": remap.PAIR_LAUNCHES}
     if [s.name for s in timer.spans] != ["frame"] * 3:
         raise AssertionError(f"rig.process recorded {timer.spans}, not one frame span per pair")
     batch = rig.process_batch(lb, rb)
     torch.cuda.synchronize()
     launches.update(sad_wta_batched=sad_wta.LAUNCHES - launches["sad_wta_single"],
-                    remap=remap.LAUNCHES)
-    if launches != {"sad_wta_single": 3, "sad_wta_batched": 1, "remap": 8}:
+                    front_end_batched=remap.PAIR_LAUNCHES - launches["front_end_single"],
+                    remap_u8=remap.LAUNCHES, gray=gray.LAUNCHES)
+    if launches != {"sad_wta_single": 3, "front_end_single": 3, "sad_wta_batched": 1,
+                    "front_end_batched": 1, "remap_u8": 0, "gray": 0}:
         raise AssertionError(f"main path did not launch every kernel as expected: {launches}")
 
     def plain_path(left_bgr, right_bgr):
-        rl = remap_bilinear_u8(gray_blockmatching_bgr(left_bgr), rig.left_map_x, rig.left_map_y)
-        rr = remap_bilinear_u8(gray_blockmatching_bgr(right_bgr), rig.right_map_x, rig.right_map_y)
+        rl, rr = plain_front_end(left_bgr, right_bgr, *rig_maps)
         return sad_wta.fused_block_matching_reference(rl, rr, num_d, radius)
 
     for (l, r), got in zip(pairs, singles):
@@ -1018,16 +1153,54 @@ def main() -> int:
         plain_ms_per_frame=p_a32 / 32, plan=sad_wta.launch_plan((32, 1080, 1920), 64, 5, dev))
     log("7-time", kernel="sad_wta", general_body_plan_at_r_8=sad_wta.launch_plan(
         (1, 1080, 1920), 64, 8, dev))
-    g1 = u8((1, *size_hw))
-    g8 = u8((8, *size_hw))
+    # Kernel G: one 1080p image, and per image over a 720p batch of 8.
+    img_1080, bgr_8 = u8((1080, 1920, 3)), u8((8, *size_hw, 3))
+    times_g = {}
+    for what, img, count in (("1080p_one_image", img_1080, 1), ("720p_batch_of_8", bgr_8, 8)):
+        run = lambda img=img: gray.gray_blockmatching_bgr(img)  # noqa: E731
+        times_g[what] = {
+            "ms_per_image": cuda_ms(run) / count,
+            "device_ms_per_image": ratio(device_ms_per_call(run)[0], count),
+            "plain_ms_per_image": cuda_ms(lambda img=img: color.gray_blockmatching_bgr(img),
+                                          reps=3) / count,
+            "bound_ms_per_image": bound(*gray_work(img.numel() // 3 // count))["bound_ms"]}
+    log("7-time", kernel="gray_u8", convention="block matching", times=times_g)
+    # Kernel B's u8 entry, at 720p through the left view's maps.
+    n_720 = size_hw[0] * size_hw[1]
     mx, my = rig.left_map_x, rig.left_map_y
-    t_b1 = cuda_ms(lambda: remap.remap_bilinear_u8_direct(g1, mx, my))
-    p_b1 = cuda_ms(lambda: remap_bilinear_u8(g1, mx, my))
-    t_b8 = cuda_ms(lambda: remap.remap_bilinear_u8_direct(g8, mx, my))
-    p_b8 = cuda_ms(lambda: remap_bilinear_u8(g8, mx, my))
-    log("7-time", kernel="remap", shape=[1, *size_hw], ms_per_frame=t_b1, plain_ms_per_frame=p_b1)
-    log("7-time", kernel="remap", shape=[8, *size_hw], ms_per_frame=t_b8 / 8,
-        plain_ms_per_frame=p_b8 / 8)
+    times_b = {}
+    for b in (1, 8):
+        g = u8((b, *size_hw))
+        run = lambda g=g: remap.remap_bilinear_u8_direct(g, mx, my)  # noqa: E731
+        times_b[b] = {
+            "ms_per_frame": cuda_ms(run) / b,
+            "device_ms_per_frame": ratio(device_ms_per_call(run)[0], b),
+            "plain_ms_per_frame": cuda_ms(lambda g=g: remap_bilinear_u8(g, mx, my)) / b,
+            "bound_ms_per_frame": bound(*remap_work(b, n_720, 1, False))["bound_ms"] / b}
+    log("7-time", kernel="remap", shape=[*size_hw], by_batch=times_b,
+        plan=remap.front_end_plan(size_hw, size_hw, 8, views=1, device=dev))
+
+    # The front end, B = 1 and 8, beside the composition it replaces (the
+    # plain gray on the card, then a u8 remap launch per view) and the twin.
+    def composition(left_bgr, right_bgr):
+        return tuple(remap.remap_bilinear_u8_direct(color.gray_blockmatching_bgr(bgr), mx_, my_)
+                     for bgr, mx_, my_ in ((left_bgr, *rig_maps[:2]), (right_bgr, *rig_maps[2:])))
+
+    times_f = {}
+    for b, (left_bgr, right_bgr) in ((1, pairs[0]), (8, (lb, rb))):
+        run = lambda l=left_bgr, r=right_bgr: remap.rectify_gray_pair(l, r, *rig_maps)  # noqa: E731
+        comp = lambda l=left_bgr, r=right_bgr: composition(l, r)  # noqa: E731
+        device, kernels = device_ms_per_call(run)
+        comp_device, comp_kernels = device_ms_per_call(comp)
+        times_f[b] = {
+            "ms": cuda_ms(run), "device_ms": device, "kernels_seen_per_call": kernels,
+            "composition_ms": cuda_ms(comp), "composition_device_ms": comp_device,
+            "composition_kernels_seen_per_call": comp_kernels,
+            "plain_ms": cuda_ms(lambda l=left_bgr, r=right_bgr: plain_front_end(l, r, *rig_maps),
+                                reps=3),
+            **bound(*remap_work(b, n_720, 2, True))}
+    log("7-time", kernel="rectify_gray_pair", shape=[*size_hw], views=2, by_batch=times_f,
+        plan=remap.front_end_plan(size_hw, size_hw, 8, device=dev))
     t_rig = cuda_ms(lambda: rig.process_batch(lb, rb))
     t_plain_rig = cuda_ms(lambda: plain_path(lb, rb), reps=3)
     t_one = cuda_ms(lambda: rig.process(*pairs[0]))
@@ -1036,10 +1209,10 @@ def main() -> int:
         process_fps=1e3 / t_one)
     log("7-profile", rig=[*size_hw, num_d, radius], batch=8,
         **device_profile(lambda: rig.process_batch(lb, rb), 10, rig_part))
-    del a1, g1, g8, lb, rb, pairs, singles, batch, triples
+    del a1, img_1080, bgr_8, lb, rb, pairs, singles, batch, triples
     torch.cuda.empty_cache()
 
-    bm_plus = run_bm_plus_phases(dev, u8, synthetic_calibration())
+    bm_launches, bm_plus = run_bm_plus_phases(dev, u8, synthetic_calibration())
     key_kernel = run_sharded_phases(dev, u8, t_a1)
 
     bad = [m for m in sys.modules
@@ -1055,11 +1228,34 @@ def main() -> int:
         kernel_entry("fused_block_matching_batched", "sad_wta.cu", "sad_wta.py:727",
                      launches["sad_wta_batched"], err_a, t_a32, p_a32,
                      bound(32 * 8 * 64 * px, 32 * 6 * px), None, [32, 1080, 1920, 64, 5]),
-        # About 16 float operations per pixel (two floors, the weights, four
-        # taps); per frame 1 byte in and 1 out per pixel, the two maps once.
-        kernel_entry("remap_bilinear_u8", "remap.cu", "remap.py:457", launches["remap"], err_b,
-                     t_b1, p_b1, bound(16 * 720 * 1280, (2 + 8) * 720 * 1280), None,
-                     [1, *size_hw]),
+        # remap_work: 10 operations a pixel once a launch, 12 a pixel and
+        # frame; the maps once, 1 byte in and 1 out a pixel and frame. No path
+        # runs this entry since the rig's front end replaced it (phase 6).
+        {**kernel_entry("remap_bilinear_u8", "remap.cu", "remap.py:457", launches["remap_u8"],
+                        0, times_b[1]["ms_per_frame"], times_b[1]["plain_ms_per_frame"],
+                        bound(*remap_work(1, n_720, 1, False)), None, [1, *size_hw]),
+         "device_ms": times_b[1]["device_ms_per_frame"],
+         "b8_ms_per_frame": times_b[8]["ms_per_frame"],
+         "b8_device_ms_per_frame": times_b[8]["device_ms_per_frame"],
+         "b8_bound_ms_per_frame": times_b[8]["bound_ms_per_frame"]},
+        # remap_work from BGR: 10 operations a pixel once a launch, 44 a pixel
+        # and frame; per view the maps once, 3 bytes in and 1 out a pixel and
+        # frame. The rig's batch of 8 at 720p, both views.
+        {**kernel_entry("rectify_gray_pair", "remap.cu", "remap.py:457",
+                        launches["front_end_single"] + launches["front_end_batched"], 0,
+                        times_f[8]["ms"], times_f[8]["plain_ms"],
+                        bound(*remap_work(8, n_720, 2, True)), None, [2, 8, *size_hw, 3]),
+         "device_ms": times_f[8]["device_ms"], "composition_ms": times_f[8]["composition_ms"],
+         "b1_ms": times_f[1]["ms"], "b1_device_ms": times_f[1]["device_ms"]},
+        # gray_work: 8 operations a pixel; 3 bytes in, 1 out. No TPU kernel:
+        # the JAX package's gray is an XLA tensordot. Launches: the bm CLI's
+        # two images (phase 10).
+        {**kernel_entry("gray_u8", "gray.cu", "", bm_launches["gray"], 0,
+                        times_g["1080p_one_image"]["ms_per_image"],
+                        times_g["1080p_one_image"]["plain_ms_per_image"], bound(*gray_work(px)),
+                        None, [1080, 1920, 3]),
+         "replaces": "gpu_stereo_matching_tpu/ops/color.py:33 (an XLA tensordot, no TPU kernel)",
+         "device_ms": times_g["1080p_one_image"]["device_ms_per_image"]},
         key_kernel,
         *bm_plus,
     ]}), flush=True)

@@ -1,6 +1,6 @@
 """Time a block-matching kernel on the card, one JSON line per shape: the
-fused SAD + WTA kernel, the key kernel, the SAD-volume kernel or the median
-kernel.
+fused SAD + WTA kernel, the key kernel, the SAD-volume kernel, the median
+kernel or the rig's front end.
 
 For each ``BxHxW`` shape: the kernel's launch plan (body, tile, blocks,
 blocks per SM, waves), whether its result equals the plain twin's on the
@@ -21,6 +21,11 @@ as the bm+ path launches it once per frame; its line adds the kernel's
 device time per launch under ``torch.profiler`` (a launch can take less
 than the host's enqueue) and, for the rank-select body, the select loop's
 instructions per pixel from the library's SASS.
+With ``--front-end`` it times the rig's front end (``rectify_gray_pair``: a
+``BxHxW`` shape is B BGR frames a view, both views in one launch, through
+smooth maps of a rectification's kind) beside the gray kernel over the same
+left frames and the u8 remap entry over their gray, each with its device
+time under ``torch.profiler``.
 To compare two trees, run each tree's module in turns on one card.
 """
 
@@ -39,8 +44,16 @@ import numpy as np
 import torch
 
 from gpu_stereo_matching_tpu_torch.device import resolve_device
-from gpu_stereo_matching_tpu_torch.kernels import _build, ctmf_median, sad_wta, split_phase
+from gpu_stereo_matching_tpu_torch.kernels import (
+    _build,
+    ctmf_median,
+    gray,
+    remap,
+    sad_wta,
+    split_phase,
+)
 from gpu_stereo_matching_tpu_torch.ops.postprocess import median_filter_u8
+from gpu_stereo_matching_tpu_torch.ops.remap import rectify_gray_pair
 
 DEFAULT_SHAPES = ("1x1080x1920", "32x1080x1920", "1x720x1280", "8x720x1280")
 
@@ -117,6 +130,38 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def smooth_maps(h: int, w: int, shift: float = 0.0):
+    """float32 maps of a rectification's kind for an (h, w) view: a few
+    pixels of smooth warp, mildly scaled, a band near the border outside."""
+    yy, xx = np.meshgrid(np.arange(h, dtype=np.float64), np.arange(w, dtype=np.float64),
+                         indexing="ij")
+    mx = 0.995 * xx + 3.1 * np.sin(yy / 97.0) + 2.3 + shift
+    my = 0.998 * yy + 1.7 * np.cos(xx / 131.0) + 0.6
+    return mx.astype(np.float32), my.astype(np.float32)
+
+
+def time_front_end(rng, dev, shape, reps: int) -> dict:
+    """The front end over a (B, H, W) shape, both views, beside the gray
+    kernel and the u8 remap: ms by CUDA events and device ms, a launch."""
+    b, h, w = shape
+    left, right = (torch.from_numpy(rng.integers(0, 256, (b, h, w, 3), dtype=np.uint8)).to(dev)
+                   for _ in range(2))
+    maps = [torch.from_numpy(m).to(dev) for s in (0.0, -17.5) for m in smooth_maps(h, w, s)]
+    gray_left = gray.gray_blockmatching_bgr(left)
+    runs = {
+        "rectify_gray_pair": lambda: remap.rectify_gray_pair(left, right, *maps),
+        "gray_u8": lambda: gray.gray_blockmatching_bgr(left),
+        "remap_bilinear_u8": lambda: remap.remap_bilinear_u8_direct(gray_left, *maps[:2]),
+    }
+    got = runs["rectify_gray_pair"]()
+    want = rectify_gray_pair(left, right, *maps)
+    equals = all(torch.equal(g, x) for g, x in zip(got, want))
+    times = {name: {"ms": cuda_ms(run, reps), "device_ms": device_ms(run, reps)}
+             for name, run in runs.items()}
+    return {"kernel": "rectify_gray_pair", "shape": list(shape), "times_per_launch": times,
+            "plan": remap.front_end_plan((h, w), (h, w), b, device=dev), "equals_twin": equals}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--shapes", nargs="+", default=list(DEFAULT_SHAPES), help="BxHxW")
@@ -127,13 +172,15 @@ def main(argv=None) -> int:
                    help="time the SAD-volume kernel, one launch per pair of the batch")
     p.add_argument("--median", type=int, metavar="R",
                    help="time the median kernel at radius R, one launch per image of the batch")
+    p.add_argument("--front-end", action="store_true",
+                   help="time the rig's front end, the gray kernel and the u8 remap")
     p.add_argument("--radius", type=int, default=5)
     p.add_argument("--reps", type=int, default=7)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda", help="cuda or cuda:N")
     args = p.parse_args(argv)
-    if sum(bool(a) for a in (args.key, args.volume, args.median)) > 1:
-        p.error("--key, --volume and --median exclude each other")
+    if sum(bool(a) for a in (args.key, args.volume, args.median, args.front_end)) > 1:
+        p.error("--key, --volume, --median and --front-end exclude each other")
     dev = resolve_device(args.device)
     if dev.type != "cuda":
         raise RuntimeError("fused_kernel: the kernel runs on a CUDA device only")
@@ -141,6 +188,12 @@ def main(argv=None) -> int:
     smi = card()
     for spec in args.shapes:
         shape = tuple(int(n) for n in spec.split("x"))
+        if args.front_end:
+            line = time_front_end(rng, dev, shape, args.reps)
+            print(json.dumps({**line, "card": smi}), flush=True)
+            if not line["equals_twin"]:
+                return 1
+            continue
         left = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
         right = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
         if args.median:

@@ -25,9 +25,9 @@ def _cmd_bm(args) -> int:
     from gpu_stereo_matching_tpu_torch.core.config import BlockMatchingConfig
     from gpu_stereo_matching_tpu_torch.io.images import load_image_bgr, load_image_gray, save_image
     from gpu_stereo_matching_tpu_torch.device import resolve_device
+    from gpu_stereo_matching_tpu_torch.kernels.gray import gray_blockmatching_bgr
     from gpu_stereo_matching_tpu_torch.kernels.sad_wta import fused_block_matching
     from gpu_stereo_matching_tpu_torch.models.block_matching import block_matching_pipeline
-    from gpu_stereo_matching_tpu_torch.ops.color import gray_blockmatching_bgr
 
     device = resolve_device(args.device)
 

@@ -25,8 +25,9 @@ BUILD_DIR = Path(__file__).parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
-    # The remap kernel must not contract multiply-adds (it also spells its
-    # float math with __fmul_rn/__fadd_rn); the other kernels are integer-only.
+    # The remap and gray kernels must not contract multiply-adds (they also
+    # spell their float math with __fmul_rn/__fadd_rn/__fmaf_rn); the other
+    # kernels are integer-only.
     "-fmad=false",
 )
 
@@ -38,7 +39,11 @@ _SIGNATURES = {
     "gsm_sad_wta_plan": [_I, _I, _I, _I, _I, _P],
     "gsm_sad_key_u8": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "gsm_sad_key_plan": [_I, _I, _I, _I, _I, _I, _P],
-    "gsm_remap_bilinear_u8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "gsm_remap_bilinear_u8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "gsm_rectify_gray_pair": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "gsm_remap_plan": [_I, _I, _I, _I, _I, _I, _P],
+    "gsm_gray_u8": [_P, _P, ctypes.c_longlong, ctypes.c_float, ctypes.c_float,
+                    ctypes.c_float, _I, _P],
     "gsm_sad_volume_u8": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gsm_sad_volume_plan": [_I, _I, _I, _I, _P],
     "gsm_wta_i32": [_P, _P, _I, _I, _P],
@@ -128,6 +133,8 @@ def load_library() -> ctypes.CDLL:
         lib.gsm_sad_volume_body.restype = _I
         lib.gsm_median_body.argtypes = [_I]
         lib.gsm_median_body.restype = _I
+        lib.gsm_gray_body.argtypes = [_P, _P]
+        lib.gsm_gray_body.restype = _I
         lib.gsm_error_string.argtypes = [ctypes.c_int]
         lib.gsm_error_string.restype = ctypes.c_char_p
         _library = lib

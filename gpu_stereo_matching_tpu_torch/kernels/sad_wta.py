@@ -104,15 +104,15 @@ def kernel_body(num_disparities: int, radius: int) -> str:
     return BODIES[_build.load_library().gsm_sad_wta_body(num_disparities, radius)]
 
 
-def _plan(entry: str, args, device, bodies=BODIES) -> dict:
+def _plan(entry: str, args, device, bodies=BODIES, names=_PLAN_FIELDS) -> dict:
     """The plan that C entry ``entry`` fills for ``args`` on ``device``;
-    its first field indexes ``bodies``."""
+    its first field indexes ``bodies``, the others are ``names``."""
     lib = _build.load_library()
-    fields = (ctypes.c_int * (1 + len(_PLAN_FIELDS)))()
+    fields = (ctypes.c_int * (1 + len(names)))()
     with torch.cuda.device(device):
         err = getattr(lib, entry)(*args, fields)
     _build.check(lib, err, entry)
-    plan = {"body": bodies[fields[0]], **dict(zip(_PLAN_FIELDS, fields[1:]))}
+    plan = {"body": bodies[fields[0]], **dict(zip(names, fields[1:]))}
     plan["waves"] = plan["blocks"] / (plan["blocks_per_sm"] * plan["sms"])
     return plan
 

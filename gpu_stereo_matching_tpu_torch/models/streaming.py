@@ -2,12 +2,13 @@
 
 The port of ``gpu_stereo_matching_tpu/models/streaming.py::StereoRig``. The
 rectification maps are computed once per calibration on the host and held
-as float32 buffers; each frame pair runs the gray conversion, the remap
-kernel and then either the fused SAD + WTA kernel (``fused=True``, the JAX
-rig's ``use_pallas=True``; a batch is one launch of each kernel over
-(B, H, W)) or the unfused block matching of ``models/block_matching.py``
-with its LR and median post-filters (``fused=False``, the JAX rig's
-``use_pallas=False``; a batch runs frame by frame, as ``jax.lax.map``).
+as float32 buffers. Each call runs the front end, gray and remap of both
+views in one launch (``kernels/remap.py::rectify_gray_pair``), and then
+either the fused SAD + WTA kernel (``fused=True``, the JAX rig's
+``use_pallas=True``; a batch is one launch over (B, H, W)) or the unfused
+block matching of ``models/block_matching.py`` with its LR and median
+post-filters (``fused=False``, the JAX rig's ``use_pallas=False``; a batch
+runs frame by frame, as ``jax.lax.map``).
 """
 
 from __future__ import annotations
@@ -23,13 +24,12 @@ from gpu_stereo_matching_tpu_torch.calib.rectify import rectification_maps_from_
 from gpu_stereo_matching_tpu_torch.core.config import BlockMatchingConfig
 from gpu_stereo_matching_tpu_torch.io.calib_yaml import StereoCalibration
 from gpu_stereo_matching_tpu_torch.device import resolve_device
-from gpu_stereo_matching_tpu_torch.kernels.remap import remap_bilinear_u8_direct
+from gpu_stereo_matching_tpu_torch.kernels.remap import rectify_gray_pair
 from gpu_stereo_matching_tpu_torch.kernels.sad_wta import (
     fused_block_matching,
     fused_block_matching_batched,
 )
 from gpu_stereo_matching_tpu_torch.models.block_matching import block_matching_pipeline
-from gpu_stereo_matching_tpu_torch.ops.color import gray_blockmatching_bgr
 from gpu_stereo_matching_tpu_torch.utils.cache import ArtifactCache, content_key
 from gpu_stereo_matching_tpu_torch.utils.profiling import StageTimer
 
@@ -91,11 +91,8 @@ class StereoRig(nn.Module):
         return t.contiguous()
 
     def _rectified_gray(self, left, right):
-        gl, gr = gray_blockmatching_bgr(left), gray_blockmatching_bgr(right)
-        return (
-            remap_bilinear_u8_direct(gl, self.left_map_x, self.left_map_y),
-            remap_bilinear_u8_direct(gr, self.right_map_x, self.right_map_y),
-        )
+        return rectify_gray_pair(left, right, self.left_map_x, self.left_map_y,
+                                 self.right_map_x, self.right_map_y)
 
     def forward(self, left_bgr, right_bgr) -> torch.Tensor:
         """(B, H, W, 3) uint8 BGR batches -> (B, H, W) int32 disparities."""

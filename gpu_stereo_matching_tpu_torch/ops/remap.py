@@ -1,4 +1,5 @@
-"""Bilinear remap as a plain torch gather: the plain twin of the remap kernel.
+"""Bilinear remap as a plain torch gather: the plain twin of the remap kernel
+and of the rig's front end.
 
 Same per-pixel formula as ``gpu_stereo_matching_tpu/ops/remap.py``: 0
 whenever any of the four taps lies outside the source (strict, so the last
@@ -8,9 +9,11 @@ float operation is its own torch op, so nothing is contracted into an FMA.
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
-from gpu_stereo_matching_tpu_torch.ops.color import round_sat_u8
+from gpu_stereo_matching_tpu_torch.ops.color import gray_blockmatching_bgr, round_sat_u8
 
 
 def remap_bilinear_u8(
@@ -26,8 +29,9 @@ def remap_bilinear_u8(
     x0f = torch.floor(map_x)
     y0f = torch.floor(map_y)
     valid = (x0f >= 0) & (y0f >= 0) & (x0f <= w - 2) & (y0f <= h - 2)
-    x0 = torch.clamp(x0f, 0, w - 2).to(torch.int64)
-    y0 = torch.clamp(y0f, 0, h - 2).to(torch.int64)
+    # Invalid pixels gather at 0 (their result is 0), so NaN never becomes an index.
+    x0 = torch.where(valid, x0f, 0.0).to(torch.int64)
+    y0 = torch.where(valid, y0f, 0.0).to(torch.int64)
     flat = src.reshape(src.shape[:-2] + (h * w,)).to(torch.float32)
     base = y0 * w + x0
 
@@ -42,3 +46,19 @@ def remap_bilinear_u8(
     bot = fy * ((1.0 - fx) * q21 + fx * q22)
     out = torch.where(valid, top + bot, torch.zeros((), dtype=torch.float32, device=src.device))
     return round_sat_u8(out)
+
+
+def rectify_gray_pair(
+    left_bgr: torch.Tensor,
+    right_bgr: torch.Tensor,
+    left_map_x: torch.Tensor,
+    left_map_y: torch.Tensor,
+    right_map_x: torch.Tensor,
+    right_map_y: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The rig's front end, per view: the block-matching gray of the
+    (..., H, W, 3) BGR frames, remapped through the view's maps."""
+    return (
+        remap_bilinear_u8(gray_blockmatching_bgr(left_bgr), left_map_x, left_map_y),
+        remap_bilinear_u8(gray_blockmatching_bgr(right_bgr), right_map_x, right_map_y),
+    )

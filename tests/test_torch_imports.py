@@ -25,6 +25,7 @@ PORT_MODULES = [
     "gpu_stereo_matching_tpu_torch.models.block_matching",
     "gpu_stereo_matching_tpu_torch.kernels._build",
     "gpu_stereo_matching_tpu_torch.kernels.sad_wta",
+    "gpu_stereo_matching_tpu_torch.kernels.gray",
     "gpu_stereo_matching_tpu_torch.kernels.remap",
     "gpu_stereo_matching_tpu_torch.kernels.split_phase",
     "gpu_stereo_matching_tpu_torch.kernels.ctmf_median",

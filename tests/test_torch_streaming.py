@@ -199,3 +199,32 @@ def test_rig_device_default_is_cuda(fn):
     import inspect
 
     assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_front_end_is_one_call_per_rig_call(monkeypatch, tiny_calib, fused):
+    """``process`` and ``process_batch`` each make one call of the front end
+    (one launch on the card), with both views and the rig's maps."""
+    from gpu_stereo_matching_tpu_torch.models import streaming
+
+    calls = []
+    real = streaming.rectify_gray_pair
+
+    def counting(*args):
+        calls.append(args)
+        return real(*args)
+
+    monkeypatch.setattr(streaming, "rectify_gray_pair", counting)
+    size_hw = (24, 32)
+    rig = StereoRig(tiny_calib, size_hw, BlockMatchingConfig(num_disparities=4, sad_radius=1),
+                    device="cpu", fused=fused)
+    rng = np.random.default_rng(5)
+    left = rng.integers(0, 256, (2, *size_hw, 3), dtype=np.uint8)
+    right = rng.integers(0, 256, (2, *size_hw, 3), dtype=np.uint8)
+    rig.process(left[0], right[0])
+    assert len(calls) == 1
+    rig.process_batch(left, right)
+    assert len(calls) == 2
+    for args, shape in zip(calls, [(*size_hw, 3), (2, *size_hw, 3)]):
+        assert tuple(args[0].shape) == tuple(args[1].shape) == shape
+        assert all(a is getattr(rig, name) for a, name in zip(args[2:], MAP_NAMES))
