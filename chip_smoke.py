@@ -5,7 +5,8 @@ Run from the repository root, with no arguments: ``python3 chip_smoke.py``.
 Phases, each printing its own line:
 
 1. require CUDA; print the card's name and power limit (nvidia-smi);
-2. build the CUDA kernels from ``gpu_stereo_matching_tpu_torch/kernels/csrc``;
+2. build the CUDA kernels from ``gpu_stereo_matching_tpu_torch/kernels/csrc``,
+   and beside them (g++) the host tree builder of ``tree/csrc``;
 3. fused SAD + WTA kernel vs its plain twin on the card, bit-exact, on edge
    shapes and at 1080x1920 D=64 r=5 with B=1 and B=4, then on structured
    inputs (constant images, two-level images, 255 against 0, a shifted
@@ -102,7 +103,22 @@ Phases, each printing its own line:
    ``torch.profiler``: device time per step by part and the idle share. On
    one card a virtual mesh measures what sharding costs (halo rows computed
    twice, one launch per disparity part plus the minimum, copies), not what
-   it gains.
+   it gains;
+16. ST-1 (``models/segment_tree.py::st1_disparity``, ``SegmentTreeConfig()``:
+   D=60, sigma 0.1, median r=3, scale 4) on the art view scaled up, against
+   a right view shifted by a known disparity of 0-40 by row: at 360x640 the
+   card's cost volume, filtered (N, D) volume and WTA map equal the port's
+   CPU run bit for bit (else the line prints the largest difference and the
+   share of equal disparities, and the phase fails), and so do the maps of
+   the whole call; kernel D on the ST maps equals its twin; then the main
+   path at 720x1280, ``st1_disparity`` twice and the ``st`` CLI once with
+   every counter at 0 just before: D once a frame, no other kernel; the
+   share of pixels within 1 level of the true shift away from the left 60
+   columns; then timings at 720x1280 and 1080x1920 (left out past 700 s):
+   the host's edge weights, tree build and plan emit, the plan's bytes and
+   upload, the device stages by CUDA events (cost, filter, WTA, D), the
+   whole call, and under ``torch.profiler`` the filter's and the
+   frame's kernel count, busy time and idle share.
 
 Each kernel's entry of the summary line carries its bound: the least time
 the card could take, the larger of its bytes (each input read once, each
@@ -127,6 +143,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -953,7 +970,217 @@ def run_sharded_phases(dev, u8, t_fused_b1: float) -> dict:
                         bound(9 * 64 * px, 6 * px), None, [1, *hw, 5, [0, 64, 64]])
 
 
+ST_HW = (720, 1280)      # ST-1's main path and its timings
+ST_CHECK_HW = (360, 640)  # the card against the port's CPU run, bit for bit
+ST_HD_HW = (1080, 1920)   # timed too while the run stays well inside its limit
+ST_HD_BEFORE_S = 700      # seconds since the start after which 1080p is left out
+ST_MAX_SHIFT = 40
+
+
+def st_pair(hw):
+    """The art view (``examples/art_left.png``) scaled to ``hw`` as the left
+    image; the right view is the left shifted left by a known disparity that
+    grows with the row from 0 to 40 (``right[y, x] = left[y, x + d(y)]``, its
+    last column repeated). Returns (left, right, d per row)."""
+    from gpu_stereo_matching_tpu_torch.io.images import load_image_bgr, resize_bilinear_u8
+
+    h, w = hw
+    here = os.path.dirname(os.path.abspath(__file__))
+    left = resize_bilinear_u8(load_image_bgr(os.path.join(here, "examples", "art_left.png")), hw)
+    truth = ST_MAX_SHIFT * np.arange(h) // (h - 1)
+    cols = np.minimum(np.arange(w)[None, :] + truth[:, None], w - 1)
+    right = np.ascontiguousarray(left[np.arange(h)[:, None], cols])
+    return left, right, truth
+
+
+def st_part(name: str) -> str:
+    """The part of an ST-1 frame that a device kernel belongs to."""
+    if "rank_select_kernel" in name or "histogram_kernel" in name:
+        return "median_kernel_D"
+    return "torch_ops"
+
+
+def wall_ms(fn, reps: int) -> float:
+    """Median host milliseconds of ``fn()`` ended by a synchronize, after one
+    warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def run_st1_phase(dev, started: float) -> dict:
+    """Phase 16: ST-1 (``st1_disparity``): the card against the port's CPU
+    run at 360x640, kernel D on the ST maps against its twin, the main path
+    with its launches, then timings by stage. Returns D's ST-1 launches and
+    the numbers of the phase."""
+    from PIL import Image
+
+    from gpu_stereo_matching_tpu_torch.cli.main import main as cli_main
+    from gpu_stereo_matching_tpu_torch.core.config import SegmentTreeConfig
+    from gpu_stereo_matching_tpu_torch.kernels import ctmf_median, gray, remap, sad_wta, split_phase
+    from gpu_stereo_matching_tpu_torch.models import segment_tree as st
+    from gpu_stereo_matching_tpu_torch.ops.cost import color_gradient_cost_volume
+    from gpu_stereo_matching_tpu_torch.ops.postprocess import median_filter_u8
+    from gpu_stereo_matching_tpu_torch.ops.wta import wta_disparity
+    from gpu_stereo_matching_tpu_torch.tree.builder import build_segment_tree, color_edge_weights
+    from gpu_stereo_matching_tpu_torch.tree.stride import (
+        StridePlan,
+        build_stride_plan,
+        tree_filter_nodes_sb,
+    )
+
+    cfg = SegmentTreeConfig()  # D=60, sigma 0.1, tau 1200, min size 50, penalty 5, r=3, x4
+    num_d = cfg.max_disp_levels
+    cpu = torch.device("cpu")
+
+    def host_plan(left, hw):
+        tree = build_segment_tree(color_edge_weights(left), *hw, tau=cfg.tau,
+                                  min_size=cfg.min_size_seg, penalty=cfg.penalty_cross_seg)
+        return StridePlan.from_tree(tree, cfg.sigma)
+
+    def filtered_and_map(left, right, plan, device):
+        cost = color_gradient_cost_volume(torch.from_numpy(left).to(device),
+                                          torch.from_numpy(right).to(device), num_d)
+        filtered = tree_filter_nodes_sb(st._to_nodes(cost), plan.to(device))
+        disp = wta_disparity(filtered, dim=1).reshape(cost.shape[1:]).to(torch.uint8)
+        return cost, filtered, disp
+
+    def d_against_twin(disp_u8, what):
+        got = ctmf_median.median_u8(disp_u8, cfg.median_radius)
+        want = median_filter_u8(disp_u8, cfg.median_radius, method="histogram")
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"kernel D differs from its twin on the ST-1 map ({what})")
+        return got
+
+    def within_one(scaled, truth):
+        levels = scaled.cpu().numpy().astype(np.int64) // cfg.disparity_scale
+        return float(np.mean(np.abs(levels - truth[:, None])[:, num_d:] <= 1))
+
+    # The card against the port's CPU run, stage by stage, at 360x640.
+    left, right, truth = st_pair(ST_CHECK_HW)
+    plan = host_plan(left, ST_CHECK_HW)
+    on_cpu = filtered_and_map(left, right, plan, cpu)
+    on_card = filtered_and_map(left, right, plan, dev)
+    torch.cuda.synchronize()
+    equal = {}
+    for name, a, b in zip(("cost", "filtered", "wta_map"), on_card, on_cpu):
+        equal[name] = bool(torch.equal(a.cpu(), b))
+    if not all(equal.values()):
+        diff = float((on_card[1].cpu() - on_cpu[1]).abs().max())
+        share = float((on_card[2].cpu() == on_cpu[2]).float().mean())
+        log("16-st1-card-vs-cpu", shape=[*ST_CHECK_HW, num_d], equal=equal,
+            filtered_max_abs_diff=diff, equal_disparity_share=share, ok=False)
+        raise AssertionError(f"ST-1 on the card differs from the CPU run: {equal}")
+    d_against_twin(on_card[2], f"{ST_CHECK_HW}")
+    full_card = st.st1_disparity(left, right, cfg, device=dev)
+    full_cpu = st.st1_disparity(left, right, cfg, device="cpu")
+    if not torch.equal(full_card.cpu(), full_cpu):
+        share = float((full_card.cpu() == full_cpu).float().mean())
+        raise AssertionError(f"st1_disparity on the card differs from the CPU run ({share})")
+    check_accuracy = within_one(full_card, truth)
+    log("16-st1-card-vs-cpu", shape=[*ST_CHECK_HW, num_d], equal=equal,
+        st1_disparity_equal=True, filtered_max_abs_diff=0.0, plan_total_pos=plan.total_pos,
+        within_one_level_share=check_accuracy, ok=True)
+    del on_cpu, on_card, full_card, full_cpu
+
+    # The main path: st1_disparity and the st CLI on the card at 720x1280,
+    # every counter at 0 just before; D once a frame, no other kernel.
+    left, right, truth = st_pair(ST_HW)
+    tmp = tempfile.TemporaryDirectory()
+    lp, rp, op = (os.path.join(tmp.name, n) for n in ("l.png", "r.png", "d.png"))
+    for path, bgr in ((lp, left), (rp, right)):
+        Image.fromarray(np.ascontiguousarray(bgr[..., ::-1])).save(path)
+    torch.cuda.synchronize()
+    split_phase.LAUNCHES.update(sad_volume=0, wta_from_sad=0)
+    ctmf_median.LAUNCHES = remap.LAUNCHES = remap.PAIR_LAUNCHES = gray.LAUNCHES = 0
+    sad_wta.LAUNCHES = sad_wta.KEY_LAUNCHES = 0
+    maps = [st.st1_disparity(left, right, cfg) for _ in range(2)]
+    cli_rc = cli_main(["st", lp, rp, op])
+    torch.cuda.synchronize()
+    launches = {**split_phase.LAUNCHES, "ctmf_median": ctmf_median.LAUNCHES,
+                "sad_wta": sad_wta.LAUNCHES, "sad_wta_key": sad_wta.KEY_LAUNCHES,
+                "front_end": remap.PAIR_LAUNCHES, "remap_u8": remap.LAUNCHES, "gray": gray.LAUNCHES}
+    want = dict.fromkeys(launches, 0)
+    want["ctmf_median"] = 3
+    if launches != want or cli_rc != 0:
+        raise AssertionError(f"ST-1 launched {launches}, not {want} (CLI rc {cli_rc})")
+    with Image.open(op) as im:
+        cli_map = torch.from_numpy(np.array(im)).to(dev)
+    for m in maps[1:] + [cli_map]:
+        if not torch.equal(m, maps[0]):
+            raise AssertionError("ST-1 frames of one pair differ")
+    if maps[0].shape != ST_HW or maps[0].dtype != torch.uint8:
+        raise AssertionError(f"ST-1 map of shape {tuple(maps[0].shape)} {maps[0].dtype}")
+    accuracy = within_one(maps[0], truth)
+    tmp.cleanup()
+    log("16-st1-main-path", shape=[*ST_HW, num_d], frames=2, cli_calls=1, launches=launches,
+        within_one_level_share=accuracy, ok=True)
+    del maps, cli_map
+
+    # Timings by stage, 720p and (while the run stays well inside its
+    # limit) 1080p.
+    times = {}
+    for hw in (ST_HW, ST_HD_HW):
+        if hw == ST_HD_HW and time.perf_counter() - started > ST_HD_BEFORE_S:
+            log("16-st1-time", shape=[*hw, num_d], left_out="the run is past "
+                f"{ST_HD_BEFORE_S} s")
+            continue
+        reps = 5 if hw == ST_HW else 3
+        left, right, truth = st_pair(hw)
+        weights = color_edge_weights(left)
+        tree = build_segment_tree(weights, *hw, tau=cfg.tau, min_size=cfg.min_size_seg,
+                                  penalty=cfg.penalty_cross_seg)
+        plan = build_stride_plan(tree, cfg.sigma)
+        host = {
+            "edge_weights": wall_ms(lambda: color_edge_weights(left), reps),
+            "tree_build": wall_ms(lambda: build_segment_tree(
+                weights, *hw, tau=cfg.tau, min_size=cfg.min_size_seg,
+                penalty=cfg.penalty_cross_seg), reps),
+            "plan_emit": wall_ms(lambda: build_stride_plan(tree, cfg.sigma), reps),
+        }
+        upload = cuda_ms(lambda: plan.to(dev), reps)
+        plan_dev = plan.to(dev)
+        l_dev, r_dev = torch.from_numpy(left).to(dev), torch.from_numpy(right).to(dev)
+        cost = color_gradient_cost_volume(l_dev, r_dev, num_d)
+        nodes = st._to_nodes(cost)
+        filtered = tree_filter_nodes_sb(nodes, plan_dev)
+        disp = wta_disparity(filtered, dim=1).reshape(hw).to(torch.uint8)
+        d_against_twin(disp, f"{hw}")
+        device = {
+            "cost_volume": cuda_ms(lambda: color_gradient_cost_volume(l_dev, r_dev, num_d), reps),
+            "filter": cuda_ms(lambda: tree_filter_nodes_sb(nodes, plan_dev), reps),
+            "wta": cuda_ms(lambda: wta_disparity(filtered, dim=1), reps),
+            "median_D": cuda_ms(lambda: ctmf_median.median_u8(disp, cfg.median_radius), reps),
+        }
+        whole = wall_ms(lambda: st.st1_disparity(left, right, cfg), reps)
+        filter_prof = device_profile(lambda: tree_filter_nodes_sb(nodes, plan_dev), 2,
+                                     lambda name: "filter")
+        frame_prof = device_profile(lambda: st.st1_disparity(left, right, cfg), 2, st_part)
+        n_rounds = min(plan.n_real, len(plan.buckets))
+        times[f"{hw[0]}x{hw[1]}"] = device["median_D"]
+        log("16-st1-time", shape=[*hw, num_d], nodes=hw[0] * hw[1],
+            host_ms=host, host_ms_sum=sum(host.values()),
+            plan={"transport_nbytes": plan.transport_nbytes, "total_pos": plan.total_pos,
+                  "rounds": n_rounds, "buckets": sum(len(r) for r in plan.buckets[:n_rounds]),
+                  "scan_steps": sum(e for r in plan.buckets[:n_rounds] for e, _p in r)},
+            upload_ms=upload, device_ms_by_events=device,
+            device_stages_sum_ms=sum(device.values()), st1_disparity_ms=whole,
+            filter_profile=filter_prof, frame_profile=frame_prof,
+            within_one_level_share=within_one(st.st1_disparity(left, right, cfg), truth))
+        del cost, nodes, filtered, disp, plan_dev, l_dev, r_dev
+        torch.cuda.empty_cache()
+    return {"launches": launches["ctmf_median"], "median_ms": times}
+
+
 def main() -> int:
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU", file=sys.stderr)
         return 1
@@ -964,6 +1191,7 @@ def main() -> int:
     from gpu_stereo_matching_tpu_torch.ops import color
     from gpu_stereo_matching_tpu_torch.ops.remap import remap_bilinear_u8
     from gpu_stereo_matching_tpu_torch.ops.remap import rectify_gray_pair as plain_front_end
+    from gpu_stereo_matching_tpu_torch.tree import builder as tree_builder
     from gpu_stereo_matching_tpu_torch.utils.profiling import StageTimer
 
     smi = subprocess.run(
@@ -976,10 +1204,15 @@ def main() -> int:
         nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    lib_path = _build.build()
-    _build.load_library()
+    # The tree library's g++ runs beside the kernels' nvcc processes.
+    with ThreadPoolExecutor(1) as pool:
+        tree_lib = pool.submit(tree_builder._compile_library)
+        lib_path = _build.build()
+        _build.load_library()
+        tree_lib_path = tree_lib.result()
     log("2-build", seconds=time.perf_counter() - t0, library=lib_path.name,
-        sources=len(list(_build.CSRC.glob("*.cu"))))
+        sources=len(list(_build.CSRC.glob("*.cu"))),
+        tree_library=os.path.relpath(tree_lib_path))
 
     rng = np.random.default_rng(SEED)
 
@@ -1214,6 +1447,7 @@ def main() -> int:
 
     bm_launches, bm_plus = run_bm_plus_phases(dev, u8, synthetic_calibration())
     key_kernel = run_sharded_phases(dev, u8, t_a1)
+    st1 = run_st1_phase(dev, started)
 
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "gpu_stereo_matching_tpu")]
@@ -1257,7 +1491,12 @@ def main() -> int:
          "replaces": "gpu_stereo_matching_tpu/ops/color.py:33 (an XLA tensordot, no TPU kernel)",
          "device_ms": times_g["1080p_one_image"]["device_ms_per_image"]},
         key_kernel,
-        *bm_plus,
+        *bm_plus[:2],
+        # Kernel D runs on two paths: once a bm+ frame (phase 10) and once an
+        # ST-1 frame (phase 16); ``launches`` is their sum.
+        {**bm_plus[2], "launches": bm_plus[2]["launches"] + st1["launches"],
+         "launches_by_path": {"bm+": bm_plus[2]["launches"], "st1": st1["launches"]},
+         "st1_map_ms_by_shape": st1["median_ms"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

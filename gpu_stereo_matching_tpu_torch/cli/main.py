@@ -1,4 +1,8 @@
-"""Command line of the port: the ``bm`` subcommand.
+"""Command line of the port: the ``st`` and ``bm`` subcommands.
+
+``st`` is the reference's STMatching CLI (``STMatching/main.cpp:40-67``):
+a BGR pair in, the ST-1 disparity scaled by ``--scale`` out as a PNG.
+``--method st2`` is refused: ST-2 is not ported yet.
 
 ``bm`` is the reference's BlockMatching ``singleFrame`` demo: two images
 in, a scaled (or, with ``--colorize``, turbo-colored) disparity PNG out.
@@ -9,7 +13,8 @@ ignores the post-filters. It runs on the card (``--device cuda``, the
 default) and raises where there is none; ``--device cpu`` runs the plain
 torch versions.
 
-Run: ``python -m gpu_stereo_matching_tpu_torch.cli.main bm L.png R.png out.png --lr-check --median-radius 3``
+Run: ``python -m gpu_stereo_matching_tpu_torch.cli.main st L.png R.png out.png``
+or ``python -m gpu_stereo_matching_tpu_torch.cli.main bm L.png R.png out.png --lr-check --median-radius 3``
 """
 
 from __future__ import annotations
@@ -19,6 +24,33 @@ import sys
 
 import numpy as np
 import torch
+
+
+def _cmd_st(args) -> int:
+    from gpu_stereo_matching_tpu_torch.core.config import SegmentTreeConfig
+    from gpu_stereo_matching_tpu_torch.io.images import load_image_bgr, save_image
+    from gpu_stereo_matching_tpu_torch.models.segment_tree import segment_tree_disparity
+
+    cfg = SegmentTreeConfig(
+        max_disp_levels=args.max_disp,
+        disparity_scale=args.scale,
+        sigma=args.sigma,
+        iterate=(args.method == "st2"),
+    )
+    left = load_image_bgr(args.left)
+    right = load_image_bgr(args.right)
+    disp = segment_tree_disparity(left, right, cfg, device=args.device).cpu().numpy()
+    save_image(args.out, disp)
+    print(f"wrote {args.out} ({disp.shape[1]}x{disp.shape[0]}, scale {args.scale})")
+    return 0
+
+
+def _st_method(value: str) -> str:
+    if value == "st2":
+        raise argparse.ArgumentTypeError("st2 is not ported yet; use st1")
+    if value != "st1":
+        raise argparse.ArgumentTypeError(f"invalid choice: {value!r} (choose from 'st1')")
+    return value
 
 
 def _cmd_bm(args) -> int:
@@ -61,6 +93,19 @@ def _cmd_bm(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="gpu_stereo_matching_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
+
+    st = sub.add_parser("st", help="segment-tree stereo (ST-1)")
+    st.add_argument("left")
+    st.add_argument("right")
+    st.add_argument("out")
+    st.add_argument("--max-disp", type=int, default=60)
+    st.add_argument("--scale", type=int, default=4)
+    st.add_argument("--sigma", type=float, default=0.1)
+    st.add_argument("--method", type=_st_method, default="st1",
+                    help="st1 (st2 is not ported yet)")
+    st.add_argument("--device", default="cuda", help="cuda (the default), cuda:N or cpu")
+    st.set_defaults(fn=_cmd_st)
+
     bm = sub.add_parser("bm", help="SAD block matching")
     bm.add_argument("left")
     bm.add_argument("right")

@@ -59,3 +59,20 @@ def gray_blockmatching_bgr(img_bgr: torch.Tensor) -> torch.Tensor:
     storage order, rounded half to even (the reference's swapped
     convention)."""
     return grayscale_u8(img_bgr, (0.299, 0.587, 0.114), rounding="half_even")
+
+
+def gradient_x(gray_u8: torch.Tensor) -> torch.Tensor:
+    """Horizontal gradient of a (..., H, W) uint8 gray image → float32.
+
+    Interior: ``0.5 * (g[x+1] - g[x-1]) + 127.5``. Border columns: the
+    one-sided full difference ``g[1] - g[0]`` and ``g[W-1] - g[W-2]``, plus
+    127.5, as in ``StereoHelper.cpp:56-70`` (the border difference is *not*
+    halved).
+    """
+    g = gray_u8.to(torch.float32)
+    left = g[..., :, :-2]
+    right = g[..., :, 2:]
+    interior = 0.5 * (right - left) + 127.5
+    first = (g[..., :, 1:2] - g[..., :, 0:1]) + 127.5
+    last = (g[..., :, -1:] - g[..., :, -2:-1]) + 127.5
+    return torch.cat([first, interior, last], dim=-1)

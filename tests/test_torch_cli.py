@@ -80,3 +80,40 @@ def test_resolve_device_cuda_absent_raises(monkeypatch):
         resolve_device("cuda")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device("cuda:1")
+
+
+@pytest.fixture
+def bgr_pair_files(tmp_path):
+    rng = np.random.default_rng(11)
+    left = rng.integers(0, 256, (12, 20, 3), dtype=np.uint8)
+    right = np.ascontiguousarray(np.roll(left, -2, axis=1))
+    Image.fromarray(left[..., ::-1]).save(tmp_path / "l.png")
+    Image.fromarray(right[..., ::-1]).save(tmp_path / "r.png")
+    return left, right, str(tmp_path / "l.png"), str(tmp_path / "r.png")
+
+
+def test_st_writes_the_st1_disparity(tmp_path, bgr_pair_files, capsys):
+    from gpu_stereo_matching_tpu_torch.core.config import SegmentTreeConfig
+    from gpu_stereo_matching_tpu_torch.models.segment_tree import st1_disparity
+
+    left, right, lp, rp = bgr_pair_files
+    out = tmp_path / "d.png"
+    assert main(["st", lp, rp, str(out), "--max-disp", "6", "--scale", "8", "--sigma", "0.2",
+                 "--device", "cpu"]) == 0
+    want = st1_disparity(left, right, SegmentTreeConfig(max_disp_levels=6, disparity_scale=8,
+                                                        sigma=0.2), device="cpu")
+    np.testing.assert_array_equal(np.asarray(Image.open(out)), want.numpy())
+    assert "wrote" in capsys.readouterr().out
+
+
+def test_st_defaults_and_refuses_st2(tmp_path, bgr_pair_files, capsys):
+    from gpu_stereo_matching_tpu_torch.cli.main import build_parser
+
+    _, _, lp, rp = bgr_pair_files
+    args = build_parser().parse_args(["st", lp, rp, str(tmp_path / "d.png")])
+    assert (args.device, args.method, args.max_disp, args.scale, args.sigma) == \
+        ("cuda", "st1", 60, 4, 0.1)
+    with pytest.raises(SystemExit):
+        main(["st", lp, rp, str(tmp_path / "d.png"), "--method", "st2", "--device", "cpu"])
+    assert "st2 is not ported yet" in capsys.readouterr().err
+    assert not (tmp_path / "d.png").exists()

@@ -23,6 +23,12 @@ PORT_MODULES = [
     "gpu_stereo_matching_tpu_torch.ops.wta",
     "gpu_stereo_matching_tpu_torch.ops.postprocess",
     "gpu_stereo_matching_tpu_torch.models.block_matching",
+    "gpu_stereo_matching_tpu_torch.models.segment_tree",
+    "gpu_stereo_matching_tpu_torch.tree",
+    "gpu_stereo_matching_tpu_torch.tree.builder",
+    "gpu_stereo_matching_tpu_torch.tree.hpd",
+    "gpu_stereo_matching_tpu_torch.tree.stride",
+    "gpu_stereo_matching_tpu_torch.tree.filter",
     "gpu_stereo_matching_tpu_torch.kernels._build",
     "gpu_stereo_matching_tpu_torch.kernels.sad_wta",
     "gpu_stereo_matching_tpu_torch.kernels.gray",
