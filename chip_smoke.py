@@ -118,7 +118,25 @@ Phases, each printing its own line:
    the host's edge weights, tree build and plan emit, the plan's bytes and
    upload, the device stages by CUDA events (cost, filter, WTA, D), the
    whole call, and under ``torch.profiler`` the filter's and the
-   frame's kernel count, busy time and idle share.
+   frame's kernel count, busy time and idle share;
+17. ST-2 (``st2_disparity``) and the streaming pipelines
+   (``models/segment_tree_stream.py``) on the same scene: at 360x640
+   ``right_cost_from_left``, the phase-1 packed map and the whole call on
+   the card equal the port's CPU run bit for bit (else the line prints the
+   shares of equal pixels and the phase fails), and kernel D equals its twin
+   on ST-2's three median inputs; the main path at 720x1280,
+   ``st2_disparity`` twice and ``st --method st2`` once with every counter
+   at 0 just before: D 9 times, no other kernel; then the video, batch and
+   ST-2 batch pipelines (group 4) over 8 frames, each with its own trees:
+   every map equal to the per-frame call's and D launched once a frame (3
+   times for ST-2); their frames per second beside the per-frame calls over
+   the same frames, timed before and after the pipelines (the first run
+   pays the layout registry's growth for the frames' new trees); then ST-2
+   by stage at
+   720x1280 and 1080x1920 (left out past 700 s): the host's sigma-1 and
+   final weights, trees and plans, phase 1 and phase 2 by CUDA events, the
+   phase-1 fetch, the whole call, and its busy time and idle share under
+   ``torch.profiler``.
 
 Each kernel's entry of the summary line carries its bound: the least time
 the card could take, the larger of its bytes (each input read once, each
@@ -988,9 +1006,61 @@ def st_pair(hw):
     here = os.path.dirname(os.path.abspath(__file__))
     left = resize_bilinear_u8(load_image_bgr(os.path.join(here, "examples", "art_left.png")), hw)
     truth = ST_MAX_SHIFT * np.arange(h) // (h - 1)
+    return left, st_right(left, truth), truth
+
+
+def st_right(left, truth):
+    """``right[y, x] = left[y, x + truth[y]]``, the last column repeated."""
+    h, w = left.shape[:2]
     cols = np.minimum(np.arange(w)[None, :] + truth[:, None], w - 1)
-    right = np.ascontiguousarray(left[np.arange(h)[:, None], cols])
-    return left, right, truth
+    return np.ascontiguousarray(left[np.arange(h)[:, None], cols])
+
+
+def st_frames(hw, n: int):
+    """``n`` frames of ``st_pair``'s scene, frame k's left view the art view
+    rolled by its own offset of 24 k columns, so that each frame has its own
+    trees; its right view shifted as ``st_pair`` shifts it."""
+    left, _right, truth = st_pair(hw)
+    lefts = [np.ascontiguousarray(np.roll(left, 24 * k, axis=1)) for k in range(n)]
+    return [(lf, st_right(lf, truth)) for lf in lefts], truth
+
+
+def within_one(scaled, truth, cfg) -> float:
+    """Share of a scaled ST map's pixels past the left D columns within 1
+    level of the true shift."""
+    levels = scaled.cpu().numpy().astype(np.int64) // cfg.disparity_scale
+    return float(np.mean(np.abs(levels - truth[:, None])[:, cfg.max_disp_levels:] <= 1))
+
+
+def median_against_twin(disp_u8, radius: int, what: str):
+    """Kernel D on an ST map against its histogram twin; the kernel's map."""
+    from gpu_stereo_matching_tpu_torch.kernels import ctmf_median
+    from gpu_stereo_matching_tpu_torch.ops.postprocess import median_filter_u8
+
+    got = ctmf_median.median_u8(disp_u8, radius)
+    want = median_filter_u8(disp_u8, radius, method="histogram")
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"kernel D differs from its twin on the ST map ({what})")
+    return got
+
+
+def zero_launches() -> None:
+    """Every kernel's launch counter to 0."""
+    from gpu_stereo_matching_tpu_torch.kernels import ctmf_median, gray, remap, sad_wta, split_phase
+
+    split_phase.LAUNCHES.update(sad_volume=0, wta_from_sad=0)
+    ctmf_median.LAUNCHES = remap.LAUNCHES = remap.PAIR_LAUNCHES = gray.LAUNCHES = 0
+    sad_wta.LAUNCHES = sad_wta.KEY_LAUNCHES = 0
+
+
+def all_launches() -> dict:
+    """Every kernel's launch counter."""
+    from gpu_stereo_matching_tpu_torch.kernels import ctmf_median, gray, remap, sad_wta, split_phase
+
+    return {**split_phase.LAUNCHES, "ctmf_median": ctmf_median.LAUNCHES,
+            "sad_wta": sad_wta.LAUNCHES, "sad_wta_key": sad_wta.KEY_LAUNCHES,
+            "front_end": remap.PAIR_LAUNCHES, "remap_u8": remap.LAUNCHES, "gray": gray.LAUNCHES}
 
 
 def st_part(name: str) -> str:
@@ -1023,10 +1093,9 @@ def run_st1_phase(dev, started: float) -> dict:
 
     from gpu_stereo_matching_tpu_torch.cli.main import main as cli_main
     from gpu_stereo_matching_tpu_torch.core.config import SegmentTreeConfig
-    from gpu_stereo_matching_tpu_torch.kernels import ctmf_median, gray, remap, sad_wta, split_phase
+    from gpu_stereo_matching_tpu_torch.kernels import ctmf_median
     from gpu_stereo_matching_tpu_torch.models import segment_tree as st
     from gpu_stereo_matching_tpu_torch.ops.cost import color_gradient_cost_volume
-    from gpu_stereo_matching_tpu_torch.ops.postprocess import median_filter_u8
     from gpu_stereo_matching_tpu_torch.ops.wta import wta_disparity
     from gpu_stereo_matching_tpu_torch.tree.builder import build_segment_tree, color_edge_weights
     from gpu_stereo_matching_tpu_torch.tree.stride import (
@@ -1052,16 +1121,7 @@ def run_st1_phase(dev, started: float) -> dict:
         return cost, filtered, disp
 
     def d_against_twin(disp_u8, what):
-        got = ctmf_median.median_u8(disp_u8, cfg.median_radius)
-        want = median_filter_u8(disp_u8, cfg.median_radius, method="histogram")
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"kernel D differs from its twin on the ST-1 map ({what})")
-        return got
-
-    def within_one(scaled, truth):
-        levels = scaled.cpu().numpy().astype(np.int64) // cfg.disparity_scale
-        return float(np.mean(np.abs(levels - truth[:, None])[:, num_d:] <= 1))
+        return median_against_twin(disp_u8, cfg.median_radius, f"ST-1, {what}")
 
     # The card against the port's CPU run, stage by stage, at 360x640.
     left, right, truth = st_pair(ST_CHECK_HW)
@@ -1084,7 +1144,7 @@ def run_st1_phase(dev, started: float) -> dict:
     if not torch.equal(full_card.cpu(), full_cpu):
         share = float((full_card.cpu() == full_cpu).float().mean())
         raise AssertionError(f"st1_disparity on the card differs from the CPU run ({share})")
-    check_accuracy = within_one(full_card, truth)
+    check_accuracy = within_one(full_card, truth, cfg)
     log("16-st1-card-vs-cpu", shape=[*ST_CHECK_HW, num_d], equal=equal,
         st1_disparity_equal=True, filtered_max_abs_diff=0.0, plan_total_pos=plan.total_pos,
         within_one_level_share=check_accuracy, ok=True)
@@ -1098,15 +1158,11 @@ def run_st1_phase(dev, started: float) -> dict:
     for path, bgr in ((lp, left), (rp, right)):
         Image.fromarray(np.ascontiguousarray(bgr[..., ::-1])).save(path)
     torch.cuda.synchronize()
-    split_phase.LAUNCHES.update(sad_volume=0, wta_from_sad=0)
-    ctmf_median.LAUNCHES = remap.LAUNCHES = remap.PAIR_LAUNCHES = gray.LAUNCHES = 0
-    sad_wta.LAUNCHES = sad_wta.KEY_LAUNCHES = 0
+    zero_launches()
     maps = [st.st1_disparity(left, right, cfg) for _ in range(2)]
     cli_rc = cli_main(["st", lp, rp, op])
     torch.cuda.synchronize()
-    launches = {**split_phase.LAUNCHES, "ctmf_median": ctmf_median.LAUNCHES,
-                "sad_wta": sad_wta.LAUNCHES, "sad_wta_key": sad_wta.KEY_LAUNCHES,
-                "front_end": remap.PAIR_LAUNCHES, "remap_u8": remap.LAUNCHES, "gray": gray.LAUNCHES}
+    launches = all_launches()
     want = dict.fromkeys(launches, 0)
     want["ctmf_median"] = 3
     if launches != want or cli_rc != 0:
@@ -1118,7 +1174,7 @@ def run_st1_phase(dev, started: float) -> dict:
             raise AssertionError("ST-1 frames of one pair differ")
     if maps[0].shape != ST_HW or maps[0].dtype != torch.uint8:
         raise AssertionError(f"ST-1 map of shape {tuple(maps[0].shape)} {maps[0].dtype}")
-    accuracy = within_one(maps[0], truth)
+    accuracy = within_one(maps[0], truth, cfg)
     tmp.cleanup()
     log("16-st1-main-path", shape=[*ST_HW, num_d], frames=2, cli_calls=1, launches=launches,
         within_one_level_share=accuracy, ok=True)
@@ -1173,10 +1229,269 @@ def run_st1_phase(dev, started: float) -> dict:
             upload_ms=upload, device_ms_by_events=device,
             device_stages_sum_ms=sum(device.values()), st1_disparity_ms=whole,
             filter_profile=filter_prof, frame_profile=frame_prof,
-            within_one_level_share=within_one(st.st1_disparity(left, right, cfg), truth))
+            within_one_level_share=within_one(st.st1_disparity(left, right, cfg), truth, cfg))
         del cost, nodes, filtered, disp, plan_dev, l_dev, r_dev
         torch.cuda.empty_cache()
     return {"launches": launches["ctmf_median"], "median_ms": times}
+
+
+ST_PIPELINE_FRAMES = 8   # frames each pipeline streams at 720x1280
+ST_GROUP = 4             # frames per group of the batch pipelines
+
+
+def run_st2_phase(dev, started: float) -> dict:
+    """Phase 17: ST-2 (``st2_disparity``) and the streaming pipelines: the
+    card against the port's CPU run at 360x640, kernel D on ST-2's three
+    median inputs against its twin, the main path at 720x1280 with its
+    launches, each pipeline against its per-frame call with its launches,
+    then ST-2 by stage and each pipeline's frames per second beside the
+    per-frame calls over the same frames. Returns D's launches and the
+    numbers of the phase."""
+    from PIL import Image
+
+    from gpu_stereo_matching_tpu_torch.cli.main import main as cli_main
+    from gpu_stereo_matching_tpu_torch.core.config import SegmentTreeConfig
+    from gpu_stereo_matching_tpu_torch.kernels import ctmf_median
+    from gpu_stereo_matching_tpu_torch.models import segment_tree as st
+    from gpu_stereo_matching_tpu_torch.models.segment_tree_stream import (
+        SegmentTreeBatchPipeline,
+        SegmentTreeST2BatchPipeline,
+        SegmentTreeVideoPipeline,
+    )
+    from gpu_stereo_matching_tpu_torch.ops.cost import (
+        color_gradient_cost_volume,
+        right_cost_from_left,
+    )
+    from gpu_stereo_matching_tpu_torch.ops.wta import wta_disparity
+    from gpu_stereo_matching_tpu_torch.tree.builder import (
+        build_segment_tree,
+        color_depth_edge_weights,
+        color_edge_weights,
+    )
+    from gpu_stereo_matching_tpu_torch.tree.stride import (
+        build_stride_plan,
+        converged_stride_batch,
+        tree_filter_nodes_sb,
+    )
+
+    cfg = SegmentTreeConfig()  # D=60, sigma 0.1, sigma_1 0.08, LR max diff 1, r=3, x4
+    num_d, lr = cfg.max_disp_levels, cfg.lr_max_diff
+    cpu = torch.device("cpu")
+
+    def phase1_inputs(left, right, device):
+        """(left, right) as (1, H, W, 3) on ``device``, the sigma-1 plans."""
+        plans = converged_stride_batch([st._sigma1_tree(left, cfg), st._sigma1_tree(right, cfg)],
+                                       cfg.sigma_one)
+        return (torch.from_numpy(left).to(device)[None], torch.from_numpy(right).to(device)[None],
+                plans)
+
+    def wta_map(cost, plan):
+        filtered = tree_filter_nodes_sb(st._to_nodes(cost), plan)
+        return wta_disparity(filtered, dim=1).reshape(cost.shape[1:]).to(torch.uint8)
+
+    def share(a, b):
+        return float((a.cpu() == b.cpu()).float().mean())
+
+    # The card against the port's CPU run at 360x640, bit for bit.
+    t_phase = time.perf_counter()
+    left, right, truth = st_pair(ST_CHECK_HW)
+    lb, rb, plans1 = phase1_inputs(left, right, cpu)
+    cost_cpu = color_gradient_cost_volume(lb[0], rb[0], num_d)
+    cost_card = color_gradient_cost_volume(lb[0].to(dev), rb[0].to(dev), num_d)
+    right_cpu, right_card = right_cost_from_left(cost_cpu), right_cost_from_left(cost_card)
+    packed_cpu = st._st2_phase1_group(lb, rb, plans1, num_d, lr)
+    packed_card = st._st2_phase1_group(lb.to(dev), rb.to(dev), plans1.to(dev), num_d, lr)
+    full_card = st.st2_disparity(left, right, cfg, device=dev)
+    full_cpu = st.st2_disparity(left, right, cfg, device="cpu")
+    torch.cuda.synchronize()
+    equal = {"right_cost_from_left": bool(torch.equal(right_card.cpu(), right_cpu)),
+             "phase1_packed": bool(torch.equal(packed_card.cpu(), packed_cpu)),
+             "st2_disparity": bool(torch.equal(full_card.cpu(), full_cpu))}
+    if not all(equal.values()):
+        log("17-st2-card-vs-cpu", shape=[*ST_CHECK_HW, num_d], equal=equal,
+            phase1_equal_share=share(packed_card, packed_cpu),
+            st2_equal_share=share(full_card, full_cpu), ok=False)
+        raise AssertionError(f"ST-2 on the card differs from the CPU run: {equal}")
+    # Kernel D on each of ST-2's three median inputs: both views' sigma-1
+    # WTA maps, and the WTA map of the tree rebuilt from color and depth.
+    disp_l, mask = st._unpack_phase1(packed_card)
+    plan2 = converged_stride_batch([st._final_tree(left, disp_l[0], mask[0], cfg)], cfg.sigma)
+    for what, cost, plan in (("left view", cost_card, plans1.frame(0)),
+                             ("right view", right_card, plans1.frame(1)),
+                             ("final tree", cost_card, plan2.frame(0))):
+        median_against_twin(wta_map(cost, plan.to(dev)), cfg.median_radius,
+                            f"ST-2 {what}, {ST_CHECK_HW}")
+    log("17-st2-card-vs-cpu", shape=[*ST_CHECK_HW, num_d], equal=equal,
+        median_inputs_checked=3, stable_share=float(mask.mean()),
+        within_one_level_share=within_one(full_card, truth, cfg),
+        seconds=time.perf_counter() - t_phase, ok=True)
+    del cost_cpu, cost_card, right_cpu, right_card, full_card, full_cpu
+
+    # The main path: st2_disparity twice and `st --method st2` once at
+    # 720x1280, every counter at 0 just before; D three times a frame.
+    t_phase = time.perf_counter()
+    left, right, truth = st_pair(ST_HW)
+    tmp = tempfile.TemporaryDirectory()
+    lp, rp, op = (os.path.join(tmp.name, n) for n in ("l.png", "r.png", "d.png"))
+    for path, bgr in ((lp, left), (rp, right)):
+        Image.fromarray(np.ascontiguousarray(bgr[..., ::-1])).save(path)
+    torch.cuda.synchronize()
+    zero_launches()
+    maps = [st.st2_disparity(left, right, cfg) for _ in range(2)]
+    cli_rc = cli_main(["st", lp, rp, op, "--method", "st2"])
+    torch.cuda.synchronize()
+    launches = all_launches()
+    want = dict.fromkeys(launches, 0)
+    want["ctmf_median"] = 9
+    if launches != want or cli_rc != 0:
+        raise AssertionError(f"ST-2 launched {launches}, not {want} (CLI rc {cli_rc})")
+    with Image.open(op) as im:
+        cli_map = torch.from_numpy(np.array(im)).to(dev)
+    for m in maps[1:] + [cli_map]:
+        if not torch.equal(m, maps[0]):
+            raise AssertionError("ST-2 frames of one pair differ")
+    if maps[0].shape != ST_HW or maps[0].dtype != torch.uint8:
+        raise AssertionError(f"ST-2 map of shape {tuple(maps[0].shape)} {maps[0].dtype}")
+    tmp.cleanup()
+    log("17-st2-main-path", shape=[*ST_HW, num_d], frames=2, cli_calls=1, launches=launches,
+        within_one_level_share=within_one(maps[0], truth, cfg),
+        seconds=time.perf_counter() - t_phase, ok=True)
+    del maps, cli_map
+
+    # The pipelines at 720x1280 over frames of their own trees: each map
+    # equal to the per-frame call's, D launched once a frame run (three
+    # times for ST-2), every other kernel never; frames per second beside
+    # the per-frame calls over the same frames, run before and after.
+    frames, truth = st_frames(ST_HW, ST_PIPELINE_FRAMES)
+
+    def timed(run):
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        maps = list(run())
+        torch.cuda.synchronize()
+        return maps, time.perf_counter() - t0, all_launches()
+
+    def per_frame(fn):
+        return lambda: (fn(lf, rt, cfg) for lf, rt in frames)
+
+    pipelines = {}
+    pipeline_launches = 0
+    t_phase = time.perf_counter()
+    # The per-frame calls run before and after the pipelines: the first run
+    # pays the layout registry's growth for the frames' new trees.
+    for method, fn, per, pipes in (
+            ("st1", st.st1_disparity, 1, (
+                ("video", SegmentTreeVideoPipeline(cfg, device=dev)),
+                ("batch", SegmentTreeBatchPipeline(cfg, group_size=ST_GROUP, device=dev)))),
+            ("st2", st.st2_disparity, 3, (
+                ("st2_batch", SegmentTreeST2BatchPipeline(cfg, group_size=ST_GROUP, device=dev)),))):
+        refs, seconds, _ = timed(per_frame(fn))
+        seq_seconds = [seconds]
+        runs = {}
+        for name, pipe in pipes:
+            maps, seconds, launched = timed(lambda pipe=pipe: pipe.process(frames))
+            want = dict.fromkeys(launched, 0)
+            # A batch pipeline pads a short last group to the group size.
+            run = len(frames) if name == "video" else -(-len(frames) // ST_GROUP) * ST_GROUP
+            want["ctmf_median"] = per * run
+            if launched != want:
+                raise AssertionError(f"pipeline {name} launched {launched}, not {want}")
+            pipeline_launches += launched["ctmf_median"]
+            runs[name] = maps
+            pipelines[name] = {"fps": len(frames) / seconds, "seconds": seconds,
+                               "launches": launched["ctmf_median"]}
+        _, seconds, _ = timed(per_frame(fn))
+        seq_seconds.append(seconds)
+        for name, maps in runs.items():
+            same = [bool(torch.equal(m, r)) for m, r in zip(maps, refs)]
+            if len(maps) != len(frames) or not all(same):
+                raise AssertionError(f"pipeline {name} differs from per-frame {method}: {same}")
+            pipelines[name]["gain_over_sequential"] = (
+                pipelines[name]["fps"] * statistics.mean(seq_seconds) / len(frames))
+        shares = [within_one(r, truth, cfg) for r in refs]
+        pipelines[f"sequential_{method}"] = {
+            "fps": [len(frames) / t for t in seq_seconds], "seconds": seq_seconds,
+            "within_one_level_share": [min(shares), max(shares)]}
+        del refs, runs
+    log("17-pipelines", shape=[*ST_HW, num_d], frames=len(frames), group=ST_GROUP,
+        workers={"batch": 2, "st2_batch": 4}, pipelines=pipelines,
+        seconds=time.perf_counter() - t_phase, ok=True)
+
+    # ST-2 by stage at 720x1280 and (while the run stays well inside its
+    # limit) 1080x1920.
+    times = {}
+    for hw in (ST_HW, ST_HD_HW):
+        if hw == ST_HD_HW and time.perf_counter() - started > ST_HD_BEFORE_S:
+            log("17-st2-time", shape=[*hw, num_d], left_out="the run is past "
+                f"{ST_HD_BEFORE_S} s")
+            continue
+        t_stage = time.perf_counter()
+        hd = hw == ST_HD_HW
+        reps = 1 if hd else 2
+        left, right, truth = st_pair(hw)
+        w_l, w_r = color_edge_weights(left), color_edge_weights(right)
+        tree_args = dict(tau=cfg.tau, min_size=cfg.min_size_seg, penalty=cfg.penalty_cross_seg)
+        t_l = build_segment_tree(w_l, *hw, **tree_args)
+        t_r = build_segment_tree(w_r, *hw, **tree_args)
+        lb, rb, plans1 = phase1_inputs(left, right, dev)
+        plans1_dev = plans1.to(dev)
+        packed = st._st2_phase1_group(lb, rb, plans1_dev, num_d, lr)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        disp_l, mask = st._unpack_phase1(packed)
+        fetch_ms = (time.perf_counter() - t0) * 1e3
+        w_f = color_depth_edge_weights(left, disp_l[0], mask[0], num_d, cfg.alpha_dep_seg)
+        t_f = build_segment_tree(w_f, *hw, **tree_args, weight_scale=255.0)
+        plan2_dev = converged_stride_batch([t_f], cfg.sigma).to(dev)
+        host = {
+            "sigma1_weights_both_views": wall_ms(lambda: (color_edge_weights(left),
+                                                          color_edge_weights(right)), reps),
+            "sigma1_trees_both_views": wall_ms(lambda: (build_segment_tree(w_l, *hw, **tree_args),
+                                                        build_segment_tree(w_r, *hw, **tree_args)),
+                                               reps),
+            "sigma1_plans_both_views": wall_ms(lambda: (build_stride_plan(t_l, cfg.sigma_one),
+                                                        build_stride_plan(t_r, cfg.sigma_one)),
+                                               reps),
+            "final_weights": wall_ms(lambda: color_depth_edge_weights(
+                left, disp_l[0], mask[0], num_d, cfg.alpha_dep_seg), reps),
+            "final_tree": wall_ms(lambda: build_segment_tree(w_f, *hw, **tree_args,
+                                                             weight_scale=255.0), reps),
+            "final_plan": wall_ms(lambda: build_stride_plan(t_f, cfg.sigma), reps),
+        }
+        device = {
+            "phase1": cuda_ms(lambda: st._st2_phase1_group(lb, rb, plans1_dev, num_d, lr), reps),
+            "phase2": cuda_ms(lambda: st._st1_device_group(lb, rb, plan2_dev, num_d), reps),
+        }
+        cost = color_gradient_cost_volume(lb[0], rb[0], num_d)
+        device["right_cost_from_left"] = cuda_ms(lambda: right_cost_from_left(cost), reps)
+        final_map = wta_map(cost, plan2_dev.frame(0))
+        median_against_twin(final_map, cfg.median_radius, f"ST-2 final tree, {hw}")
+        device["median_D_final_map"] = cuda_ms(
+            lambda: ctmf_median.median_u8(final_map, cfg.median_radius), reps)
+        # The stages above built this pair's trees and plans, so the layout
+        # registry has grown for them: one call at 1080p, 2 after a warm-up
+        # at 720p (the main path's line has its accuracy), where the
+        # profiler then traces one more.
+        if hd:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            accuracy = within_one(st.st2_disparity(left, right, cfg), truth, cfg)
+            whole = (time.perf_counter() - t0) * 1e3
+        else:
+            accuracy = None
+            whole = wall_ms(lambda: st.st2_disparity(left, right, cfg), reps)
+        frame_prof = (None if hd else
+                      device_profile(lambda: st.st2_disparity(left, right, cfg), 1, st_part))
+        times[f"{hw[0]}x{hw[1]}"] = {"median_D_final_map": device["median_D_final_map"]}
+        log("17-st2-time", shape=[*hw, num_d], host_ms=host, host_ms_sum=sum(host.values()),
+            device_ms_by_events=device, phase1_fetch_ms=fetch_ms,
+            stable_share=float(mask.mean()), st2_disparity_ms=whole, frame_profile=frame_prof,
+            within_one_level_share=accuracy, seconds=time.perf_counter() - t_stage)
+        del lb, rb, plans1_dev, plan2_dev, packed, cost, final_map
+        torch.cuda.empty_cache()
+    return {"launches": launches["ctmf_median"], "pipeline_launches": pipeline_launches,
+            "median_ms": times, "pipelines": pipelines}
 
 
 def main() -> int:
@@ -1448,6 +1763,7 @@ def main() -> int:
     bm_launches, bm_plus = run_bm_plus_phases(dev, u8, synthetic_calibration())
     key_kernel = run_sharded_phases(dev, u8, t_a1)
     st1 = run_st1_phase(dev, started)
+    st2 = run_st2_phase(dev, started)
 
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "gpu_stereo_matching_tpu")]
@@ -1492,11 +1808,14 @@ def main() -> int:
          "device_ms": times_g["1080p_one_image"]["device_ms_per_image"]},
         key_kernel,
         *bm_plus[:2],
-        # Kernel D runs on two paths: once a bm+ frame (phase 10) and once an
-        # ST-1 frame (phase 16); ``launches`` is their sum.
-        {**bm_plus[2], "launches": bm_plus[2]["launches"] + st1["launches"],
-         "launches_by_path": {"bm+": bm_plus[2]["launches"], "st1": st1["launches"]},
-         "st1_map_ms_by_shape": st1["median_ms"]},
+        # Kernel D runs on four paths: once a bm+ frame (phase 10), once an
+        # ST-1 frame (phase 16), three times an ST-2 frame (phase 17) and so
+        # in the streaming pipelines (phase 17); ``launches`` is their sum.
+        {**bm_plus[2], "launches": (bm_plus[2]["launches"] + st1["launches"] + st2["launches"]
+                                    + st2["pipeline_launches"]),
+         "launches_by_path": {"bm+": bm_plus[2]["launches"], "st1": st1["launches"],
+                              "st2": st2["launches"], "st_pipelines": st2["pipeline_launches"]},
+         "st1_map_ms_by_shape": st1["median_ms"], "st2_map_ms_by_shape": st2["median_ms"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,8 @@
 """Command line of the port: the ``st`` and ``bm`` subcommands.
 
 ``st`` is the reference's STMatching CLI (``STMatching/main.cpp:40-67``):
-a BGR pair in, the ST-1 disparity scaled by ``--scale`` out as a PNG.
-``--method st2`` is refused: ST-2 is not ported yet.
+a BGR pair in, the ST-1 (``--method st1``, the default) or ST-2
+(``--method st2``) disparity scaled by ``--scale`` out as a PNG.
 
 ``bm`` is the reference's BlockMatching ``singleFrame`` demo: two images
 in, a scaled (or, with ``--colorize``, turbo-colored) disparity PNG out.
@@ -43,14 +43,6 @@ def _cmd_st(args) -> int:
     save_image(args.out, disp)
     print(f"wrote {args.out} ({disp.shape[1]}x{disp.shape[0]}, scale {args.scale})")
     return 0
-
-
-def _st_method(value: str) -> str:
-    if value == "st2":
-        raise argparse.ArgumentTypeError("st2 is not ported yet; use st1")
-    if value != "st1":
-        raise argparse.ArgumentTypeError(f"invalid choice: {value!r} (choose from 'st1')")
-    return value
 
 
 def _cmd_bm(args) -> int:
@@ -94,15 +86,14 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="gpu_stereo_matching_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
 
-    st = sub.add_parser("st", help="segment-tree stereo (ST-1)")
+    st = sub.add_parser("st", help="segment-tree stereo (ST-1 / ST-2)")
     st.add_argument("left")
     st.add_argument("right")
     st.add_argument("out")
     st.add_argument("--max-disp", type=int, default=60)
     st.add_argument("--scale", type=int, default=4)
     st.add_argument("--sigma", type=float, default=0.1)
-    st.add_argument("--method", type=_st_method, default="st1",
-                    help="st1 (st2 is not ported yet)")
+    st.add_argument("--method", choices=["st1", "st2"], default="st1")
     st.add_argument("--device", default="cuda", help="cuda (the default), cuda:N or cpu")
     st.set_defaults(fn=_cmd_st)
 

@@ -115,3 +115,21 @@ def color_gradient_cost_volume(
 
 def _rec601_gray(img_bgr: torch.Tensor) -> torch.Tensor:
     return gray_rec601_bgr(img_bgr)
+
+
+def right_cost_from_left(cost_left: torch.Tensor) -> torch.Tensor:
+    """Derive the right-view cost volume from the left one, (D, H, W) → (D, H, W).
+
+    ``right(d,y,x) = left(d,y,x+d)`` where ``x+d < W``; at the right edge the
+    previous disparity plane is carried over (``StereoHelper.cpp:156-180``).
+    The carried value of plane d at column x is plane ``d* = min(d, W-1-x)``'s,
+    so the JAX function's scan over the planes is one gather here:
+    ``right[d, y, x] = left[d*, y, x + d*]``. It only selects values, so it is
+    exact on any device.
+    """
+    num_d, h, w = cost_left.shape
+    dev = cost_left.device
+    x = torch.arange(w, device=dev)
+    d_star = torch.minimum(torch.arange(num_d, device=dev)[:, None], (w - 1) - x)  # (D, W)
+    rows = torch.arange(h, device=dev)[None, :, None]
+    return cost_left[d_star[:, None, :], rows, (x + d_star)[:, None, :]]

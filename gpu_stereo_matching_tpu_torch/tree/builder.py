@@ -25,6 +25,7 @@ import dataclasses
 import os
 import subprocess
 import tempfile
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -34,6 +35,8 @@ from gpu_stereo_matching_tpu_torch.ops.postprocess import median_filter_u8
 
 _CSRC = os.path.join(os.path.dirname(__file__), "csrc", "segment_tree.cpp")
 _LIB_CACHE: Optional[ctypes.CDLL] = None
+# The streaming pipelines build trees from worker threads: one g++ at first use.
+_LIB_LOCK = threading.Lock()
 
 
 def _compile_library() -> str:
@@ -55,6 +58,11 @@ def _compile_library() -> str:
 
 
 def _lib() -> ctypes.CDLL:
+    with _LIB_LOCK:
+        return _load_lib()
+
+
+def _load_lib() -> ctypes.CDLL:
     global _LIB_CACHE
     if _LIB_CACHE is None:
         lib = ctypes.CDLL(_compile_library())

@@ -41,6 +41,7 @@ The static layout is converged through the persisted registry of
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -812,16 +813,31 @@ def stack_stride_plans(plans) -> StridePlan:
     )
 
 
-def converged_stride_batch(trees, sigma: float, native: bool = True) -> StridePlan:
-    """One stacked stride plan (on the host) for several same-size trees.
+def converge_stride_plans(builds, pool=None) -> StridePlan:
+    """Call every plan builder in ``builds`` (callables returning a
+    :class:`StridePlan`), on ``pool`` (an executor) if one is given, until
+    all the plans report the same layout key; return them stacked.
 
     Building a plan can grow the layout registry (a longer path, a fuller
-    bucket), so iterate until every plan reports the same layout key —
-    monotone caps bound this at a handful of host-side re-emissions.
+    bucket), so an earlier plan of the batch may have a smaller layout than
+    a later one. The registry's caps only grow, so a rebuild converges:
+    this bounds it at 8 rounds, as the JAX package does.
     """
-    plans = [StridePlan.from_tree(t, sigma, native=native) for t in trees]
+    mapper = map if pool is None else pool.map
+
+    def run():
+        return list(mapper(lambda f: f(), builds))
+
+    plans = run()
     for _ in range(8):
         if len({p.layout_key for p in plans}) == 1:
             return stack_stride_plans(plans)
-        plans = [StridePlan.from_tree(t, sigma, native=native) for t in trees]
+        plans = run()
     raise RuntimeError("plan layouts failed to converge")  # pragma: no cover
+
+
+def converged_stride_batch(trees, sigma: float, native: bool = True) -> StridePlan:
+    """One stacked stride plan (on the host) for several same-size trees."""
+    return converge_stride_plans([
+        functools.partial(StridePlan.from_tree, t, sigma, native=native) for t in trees
+    ])

@@ -107,13 +107,27 @@ def test_st_writes_the_st1_disparity(tmp_path, bgr_pair_files, capsys):
 
 
 def test_st_defaults_and_refuses_st2(tmp_path, bgr_pair_files, capsys):
+    """The defaults; ``--method st2`` writes the ST-2 map (within the ST-2
+    band of the JAX map); a method that is neither is refused."""
+    from gpu_stereo_matching_tpu.core.config import SegmentTreeConfig as JaxConfig
+    from gpu_stereo_matching_tpu.models.segment_tree import st2_disparity as jax_st2
     from gpu_stereo_matching_tpu_torch.cli.main import build_parser
+    from gpu_stereo_matching_tpu_torch.core.config import SegmentTreeConfig
+    from gpu_stereo_matching_tpu_torch.models.segment_tree import st2_disparity
 
-    _, _, lp, rp = bgr_pair_files
+    left, right, lp, rp = bgr_pair_files
     args = build_parser().parse_args(["st", lp, rp, str(tmp_path / "d.png")])
     assert (args.device, args.method, args.max_disp, args.scale, args.sigma) == \
         ("cuda", "st1", 60, 4, 0.1)
+    out = tmp_path / "d.png"
+    assert main(["st", lp, rp, str(out), "--method", "st2", "--max-disp", "6",
+                 "--device", "cpu"]) == 0
+    got = np.asarray(Image.open(out))
+    want = st2_disparity(left, right, SegmentTreeConfig(max_disp_levels=6), device="cpu")
+    np.testing.assert_array_equal(got, want.numpy())
+    assert float(np.mean(got == jax_st2(left, right, JaxConfig(max_disp_levels=6)))) >= 0.97
+    assert "wrote" in capsys.readouterr().out
     with pytest.raises(SystemExit):
-        main(["st", lp, rp, str(tmp_path / "d.png"), "--method", "st2", "--device", "cpu"])
-    assert "st2 is not ported yet" in capsys.readouterr().err
-    assert not (tmp_path / "d.png").exists()
+        main(["st", lp, rp, str(tmp_path / "e.png"), "--method", "st3", "--device", "cpu"])
+    assert "invalid choice" in capsys.readouterr().err
+    assert not (tmp_path / "e.png").exists()

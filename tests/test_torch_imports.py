@@ -24,6 +24,7 @@ PORT_MODULES = [
     "gpu_stereo_matching_tpu_torch.ops.postprocess",
     "gpu_stereo_matching_tpu_torch.models.block_matching",
     "gpu_stereo_matching_tpu_torch.models.segment_tree",
+    "gpu_stereo_matching_tpu_torch.models.segment_tree_stream",
     "gpu_stereo_matching_tpu_torch.tree",
     "gpu_stereo_matching_tpu_torch.tree.builder",
     "gpu_stereo_matching_tpu_torch.tree.hpd",

@@ -2,8 +2,9 @@
 ``st1_disparity`` on the CPU: random pairs and a crop of
 ``examples/art_left.png`` against a shifted copy. The filters sum floats in
 their own orders, so near-tied WTA decisions may flip: the maps are held to
-a share of equal pixels. Then the checks, ST-2's refusal, the dispatch on
-``iterate``, and on a card the card against the CPU."""
+a share of equal pixels. Then the checks, the dispatch on ``iterate``
+(ST-2 itself is ``tests/test_torch_st2.py``), and on a card the card
+against the CPU."""
 
 from pathlib import Path
 
@@ -85,14 +86,18 @@ def test_st1_takes_tensors_and_scales(jax_maps):
 
 
 def test_segment_tree_disparity_dispatch():
+    """``iterate`` picks ST-1 or ST-2, as the JAX function's dispatch does."""
     left, right = _pair(4, 10, 14)
     cfg = SegmentTreeConfig(max_disp_levels=6)
     np.testing.assert_array_equal(
         tst.segment_tree_disparity(left, right, cfg, device="cpu").numpy(),
         tst.st1_disparity(left, right, cfg, device="cpu").numpy())
-    with pytest.raises(NotImplementedError, match="ST-2"):
-        tst.segment_tree_disparity(left, right, SegmentTreeConfig(max_disp_levels=6,
-                                                                  iterate=True), device="cpu")
+    st2_cfg = SegmentTreeConfig(max_disp_levels=6, iterate=True)
+    got = tst.segment_tree_disparity(left, right, st2_cfg, device="cpu").numpy()
+    np.testing.assert_array_equal(got, tst.st2_disparity(left, right, st2_cfg,
+                                                         device="cpu").numpy())
+    want = jst.segment_tree_disparity(left, right, JaxConfig(max_disp_levels=6, iterate=True))
+    assert float(np.mean(got == want)) >= 0.97
 
 
 @pytest.mark.parametrize("left,right,match", [

@@ -3,7 +3,9 @@ oracle on the CPU: the stride-bucket filter (``tree_filter_nodes_sb``, lean
 and ``lean=False`` plans) and the level-scan filter
 (``tree_filter_nodes``), at the bands of ``tests/test_tree.py`` and
 ``tests/test_stride.py``, with their perm decode and inversion exact. The
-JAX filter runs jitted (its first eager call compiles every op apart)."""
+JAX filter runs jitted (its first eager call compiles every op apart), and
+once op by op under ``jax.disable_jit()``, where the port equals it bit for
+bit."""
 
 import numpy as np
 import pytest
@@ -79,6 +81,18 @@ def test_stride_filter_matches_jax(jax_sb, hw, lean):
     _jtree, jplan = _jax_plan(tree, 0.1, lean)
     want = np.asarray(jax_sb(jnp.asarray(cost), jplan))
     np.testing.assert_allclose(got.numpy(), want, rtol=3e-6, atol=3e-6)
+
+
+@pytest.mark.parametrize("lean", [True, False])
+def test_stride_filter_equals_jax_op_by_op(fresh_registries, lean):
+    """Run op by op, the JAX filter does the port's float operations in the
+    port's order (jitted, XLA contracts the scans' multiply-adds), so the
+    two give the same bits."""
+    tree, cost, got = _sb((13, 29), lean)
+    _jtree, jplan = _jax_plan(tree, 0.1, lean)
+    with jax.disable_jit():
+        want = np.asarray(js.tree_filter_nodes_sb(jnp.asarray(cost), jplan))
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("hw", [(13, 29), (23, 17), (1, 17), (16, 1)])
