@@ -42,7 +42,9 @@ Phases, each printing its own line:
    ``torch.profiler``: device time per call by part (fused kernel, front
    end, the rest) and the idle share;
 8. split-phase SAD volume and argmin kernels vs their plain twins on the
-   card, bit-exact, on the edge shapes and at 1080x1920 D=64 r=5; the
+   card, bit-exact, on the edge shapes, at 1080x1920 D=64 r=5 and at the
+   ``middlebury`` command's bm shapes of phase 18 (360x640 and 720x1280,
+   D=80 r=5); the
    argmin also on right-view volumes, which hold INT32_MAX. Then the volume
    kernel on the structured inputs of phase 3 at shapes that leave ragged
    tiles (W = 128k + 1, H = 32k + 1), with H < r, odd D, D = W, widths that
@@ -136,7 +138,36 @@ Phases, each printing its own line:
    720x1280 and 1080x1920 (left out past 700 s): the host's sigma-1 and
    final weights, trees and plans, phase 1 and phase 2 by CUDA events, the
    phase-1 fetch, the whole call, and its busy time and idle share under
-   ``torch.profiler``.
+   ``torch.profiler``;
+18. the per-band ST entries on the same scene (``models/segment_tree_tiled.py``,
+   ``parallel/segment_tree.py``, ``SegmentTreeBatchPipeline(bands > 1)``) and
+   the ``middlebury`` command: at 360x640 ``st1_disparity_tiled`` with 4, 3
+   (unequal bands) and 1 band, ``st2_disparity_tiled`` with 4, the sharded
+   ST-1 and ST-2 on a virtual ``(1, 4, 1)`` mesh and the banded pipeline
+   (4 bands, 5 frames, group 2) on the card equal the port's CPU run bit for
+   bit, each with every counter at 0 just before: D once a band of an ST-1
+   frame, three times a band of an ST-2 frame, once a band of every frame
+   the pipeline runs (its padded one included), no other kernel; on the
+   card sharded equals tiled, the pipeline equals tiled frame by frame and 1
+   band equals ``st1_disparity``. Then at 720x1280 tiled ST-1 with 1, 4 and
+   8 bands: one call with its stages probed through the entry's own calls
+   (the host's weights, trees and plan emits summed over bands; the cost by
+   the host clock; the filter's and D's calls replayed on their own inputs
+   by events, the filter's also under ``torch.profiler`` for its launches a
+   frame), then the frame, so warmed, by the host clock; the sharded ST-1
+   on ``(1, 4, 1)`` and ``(1, 8, 1)`` equal to tiled; ``st2_disparity``
+   warmed and timed, the sharded ST-2 on ``(1, 4, 1)`` run once with its
+   stages probed, then tiled ST-2 with 4 bands timed and equal to it;
+   each band count's share within 2 levels of the global tree's map and
+   within 1 level of the true shift; the banded pipeline with 1, 4 and 8
+   bands over 8 frames (group 4, 4 workers) beside the per-frame ST-1. Last
+   ``middlebury --pipelines bm,bm+,st1,st2`` on a synthetic scene
+   (``view1.png``, ``view5.png``, ground truth of 3 x the shift) at
+   360x640: the card launches G 4 times, E1 twice, E2 3 times and D 5
+   times and prints the CPU's bad-2.0 lines; then the harness's bm and bm+
+   maps (D = 80) on the card equal the CPU's bit for bit.
+   To run it alone: ``run_tiled_phase(torch.device("cuda:0"),
+   time.perf_counter())`` after the build of phase 2.
 
 Each kernel's entry of the summary line carries its bound: the least time
 the card could take, the larger of its bytes (each input read once, each
@@ -154,6 +185,7 @@ Then one JSON line with the kernels' summary, and last
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -177,6 +209,9 @@ STRUCTURED_CASES = [  # (B, H, W, D, r): W = 128k + 1 and H = 32k + 1 leave a 1-
     (3, 33, 257, 64, 5), (1, 65, 129, 129, 7), (1, 17, 385, 65, 1), (2, 40, 130, 63, 3),
     (3, 33, 257, 63, 0), (1, 40, 130, 64, 8), (1, 65, 129, 129, 9),
 ]
+# (B, H, W, D, r): the middlebury command's bm and bm+ on phase 18's scenes
+# (the harness's D = 80, BlockMatchingConfig's r = 5).
+MIDDLEBURY_BM_CASES = [(1, 360, 640, 80, 5), (1, 720, 1280, 80, 5)]
 VOLUME_CASES = [  # (H, W, D, r): ragged tiles, H < r, odd D, D = W, W % 4 != 0, every r of 0..9
     (33, 257, 64, 5), (65, 129, 129, 7), (17, 385, 65, 1), (40, 130, 63, 3), (4, 140, 64, 5),
     (70, 256, 33, 2), (36, 132, 64, 4), (40, 128, 64, 6), (33, 257, 63, 0), (40, 130, 64, 8),
@@ -452,7 +487,7 @@ def run_bm_plus_phases(dev, u8, calib) -> list:
     err_e1 = err_e2 = 0
     right_views = 0
     bodies = {"strips": 0, "general": 0}
-    for _, h, w, d, r in EDGE_CASES + [(1, 1080, 1920, 64, 5)]:
+    for _, h, w, d, r in EDGE_CASES + [(1, 1080, 1920, 64, 5)] + MIDDLEBURY_BM_CASES:
         left, right = u8((h, w)), u8((h, w))
         vol = split_phase.sad_volume(left, right, d, r)
         want = split_phase.sad_volume_reference(left, right, d, r)
@@ -482,7 +517,7 @@ def run_bm_plus_phases(dev, u8, calib) -> list:
                 structured += 1
     if not all(bodies.values()) or split_phase.volume_kernel_body(64, 5) != "strips":
         raise AssertionError(f"phase 8 must cover both bodies, (64, 5) on strips: {bodies}")
-    log("8-split-phase-vs-twin", cases=len(EDGE_CASES) + 1 + structured,
+    log("8-split-phase-vs-twin", cases=len(EDGE_CASES) + 1 + len(MIDDLEBURY_BM_CASES) + structured,
         structured_cases=structured, cases_by_body=bodies,
         body_of_64_5=split_phase.volume_kernel_body(64, 5),
         right_views_with_int32_max=right_views,
@@ -747,7 +782,6 @@ def run_sharded_phases(dev, u8, t_fused_b1: float) -> dict:
     """Phases 12-15: the key kernel vs its twin, the sharded steps on
     virtual meshes on the card, the launcher, and the timings. Returns the
     key kernel's entry of the summary line."""
-    import contextlib
     import io
 
     from gpu_stereo_matching_tpu_torch import BlockMatchingConfig
@@ -1494,6 +1528,361 @@ def run_st2_phase(dev, started: float) -> dict:
             "median_ms": times, "pipelines": pipelines}
 
 
+TILED_CHECK_FRAMES = 5   # frames of the banded pipeline's check at 360x640, group 2
+TILED_BANDS = (1, 4, 8)  # band counts timed at 720x1280
+MIDDLEBURY_PIPELINES = "bm,bm+,st1,st2"
+# Launches of one `middlebury` run over one scene with MIDDLEBURY_PIPELINES
+# on the card: bm and bm+ convert both views with G, bm runs E1 and E2 once,
+# bm+ E1 once, E2 twice and D once; ST-1 runs D once, ST-2 three times.
+MIDDLEBURY_LAUNCHES = {"gray": 4, "sad_volume": 2, "wta_from_sad": 3, "ctmf_median": 5}
+
+
+def middlebury_scene(root: str, hw) -> str:
+    """A Middlebury-style scene folder ``Synth`` under ``root``: ``st_pair``'s
+    views as ``view1.png`` and ``view5.png``, and 3 x the true shift (the
+    third-size ground truth's scale) as ``disp1.png`` and ``disp5.png``;
+    row 0, shifted by 0, is unknown ground truth (0)."""
+    from gpu_stereo_matching_tpu_torch.io.images import save_image
+
+    left, right, truth = st_pair(hw)
+    folder = os.path.join(root, "Synth")
+    os.makedirs(folder)
+    save_image(os.path.join(folder, "view1.png"), left)
+    save_image(os.path.join(folder, "view5.png"), right)
+    gt = np.repeat((3 * truth).astype(np.uint8)[:, None], hw[1], axis=1)
+    for name in ("disp1.png", "disp5.png"):
+        save_image(os.path.join(folder, name), gt)
+    return root
+
+
+def middlebury_lines(root: str, device: str):
+    """The ``middlebury`` command's printed lines over ``root``, and its
+    lines without the times."""
+    import io
+
+    from gpu_stereo_matching_tpu_torch.cli.main import main as cli_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["middlebury", "--root", root, "--pipelines", MIDDLEBURY_PIPELINES,
+                       "--device", device])
+    if rc != 0:
+        raise AssertionError(f"middlebury --device {device} returned {rc}")
+    lines = buf.getvalue().splitlines()
+    return lines, [x.rsplit(" ", 2)[0].rstrip() if x.endswith(" ms") else x for x in lines]
+
+
+def host_timed(fn):
+    """One call of ``fn()`` timed by the host clock, after a synchronize and
+    ended by one: (milliseconds, its result)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def warm_then_timed(fn):
+    """One warm-up call of ``fn()``, then one timed by :func:`host_timed`."""
+    fn()
+    return host_timed(fn)
+
+
+def events_ms(fn) -> float:
+    """Milliseconds of one call of ``fn()`` between CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+@contextlib.contextmanager
+def probed(owner, *names):
+    """Within the block, every call of ``owner.<name>`` (a module's function
+    or a class's classmethod) for each of ``names`` is recorded in
+    ``calls[name]`` as (host milliseconds, positional arguments, result).
+    The span opens and closes with a synchronize, so it holds the call's own
+    work and nothing enqueued before it. An entry point is so timed by
+    stage through its own code. The originals are restored on exit."""
+    calls = {name: [] for name in names}
+    originals = {name: vars(owner)[name] for name in names}
+
+    def probe(name, fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            calls[name].append(((time.perf_counter() - t0) * 1e3, args, out))
+            return out
+        return call
+
+    for name in names:
+        setattr(owner, name, probe(name, getattr(owner, name)))
+    try:
+        yield calls
+    finally:
+        for name, fn in originals.items():
+            setattr(owner, name, fn)
+
+
+def run_tiled_phase(dev, started: float) -> dict:
+    """Phase 18: the per-band segment-tree entries (tiled, sharded over
+    ``space``, the banded batch pipeline) and the ``middlebury`` command.
+    At 360x640 each entry on the card equals the port's CPU run bit for bit
+    with its launches asserted; then timings at 720x1280 by stage and band
+    count, the pipelines' frames per second, and the ``middlebury`` command
+    on a synthetic scene on the card against the CPU. Returns the launches
+    of the phase's asserted windows and its numbers."""
+    from gpu_stereo_matching_tpu_torch.bench.middlebury import BM_CONFIG, pipeline_disparity
+    from gpu_stereo_matching_tpu_torch.core.config import MeshConfig, SegmentTreeConfig
+    from gpu_stereo_matching_tpu_torch.io.middlebury import MiddleburyScene
+    from gpu_stereo_matching_tpu_torch.models import segment_tree as st
+    from gpu_stereo_matching_tpu_torch.models import segment_tree_tiled as tiled_module
+    from gpu_stereo_matching_tpu_torch.models.segment_tree_stream import SegmentTreeBatchPipeline
+    from gpu_stereo_matching_tpu_torch.models.segment_tree_tiled import (
+        st1_disparity_tiled,
+        st2_disparity_tiled,
+    )
+    from gpu_stereo_matching_tpu_torch.ops.postprocess import median_filter_u8
+    from gpu_stereo_matching_tpu_torch.parallel import segment_tree as pst
+    from gpu_stereo_matching_tpu_torch.parallel.mesh import virtual_mesh
+    from gpu_stereo_matching_tpu_torch.tree.stride import StridePlan, tree_filter_nodes_sb
+
+    cfg = SegmentTreeConfig()  # D=60, sigma 0.1, sigma_1 0.08, tau 1200, min size 50, r=3, x4
+    num_d = cfg.max_disp_levels
+    cpu = torch.device("cpu")
+    totals = dict.fromkeys(("ctmf_median", "sad_volume", "wta_from_sad", "gray"), 0)
+
+    def mesh(space, device=dev):
+        return virtual_mesh(MeshConfig(1, space, 1), device)
+
+    def launched(run, what, **want_nonzero):
+        """``run()`` with every counter at 0 just before; the counters must
+        read ``want_nonzero`` just after and every other kernel 0."""
+        torch.cuda.synchronize()
+        zero_launches()
+        out = run()
+        torch.cuda.synchronize()
+        got = all_launches()
+        want = {**dict.fromkeys(got, 0), **want_nonzero}
+        if got != want:
+            raise AssertionError(f"{what} launched {got}, not {want}")
+        for k, v in want_nonzero.items():
+            totals[k] += v
+        return out
+
+    def share(a, b):
+        return float((a.cpu() == b.cpu()).float().mean())
+
+    # 1-2. The card against the port's CPU run at 360x640, bit for bit, each
+    # entry point's launches asserted: D once a band of an ST-1 frame, three
+    # times a band of an ST-2 frame.
+    t_phase = time.perf_counter()
+    left, right, _truth = st_pair(ST_CHECK_HW)
+    entries = {
+        "st1_tiled_4": (lambda d: st1_disparity_tiled(left, right, 4, cfg, device=d), 4),
+        "st1_tiled_3": (lambda d: st1_disparity_tiled(left, right, 3, cfg, device=d), 3),
+        "st1_tiled_1": (lambda d: st1_disparity_tiled(left, right, 1, cfg, device=d), 1),
+        "st2_tiled_4": (lambda d: st2_disparity_tiled(left, right, 4, cfg, device=d), 12),
+        "st1_sharded_1x4x1": (lambda d: pst.st1_disparity_sharded(left, right, mesh(4, d), cfg), 4),
+        "st2_sharded_1x4x1": (lambda d: pst.st2_disparity_sharded(left, right, mesh(4, d), cfg), 12),
+    }
+    card, equal = {}, {}
+    for name, (run, d_per_frame) in entries.items():
+        card[name] = launched(lambda run=run: run(dev), name, ctmf_median=d_per_frame)
+        if card[name].device != dev or tuple(card[name].shape) != ST_CHECK_HW:
+            raise AssertionError(f"{name} gave {tuple(card[name].shape)} on {card[name].device}")
+        equal[name] = share(card[name], run(cpu))
+    frames, _ = st_frames(ST_CHECK_HW, TILED_CHECK_FRAMES)
+    frames_run = -(-len(frames) // 2) * 2  # the short last group is padded
+
+    def banded(device):
+        pipe = SegmentTreeBatchPipeline(cfg, group_size=2, workers=2, bands=4, device=device)
+        return list(pipe.process(frames))
+
+    pipe_card = launched(lambda: banded(dev), "banded pipeline", ctmf_median=4 * frames_run)
+    pipe_cpu = banded(cpu)
+    equal["pipeline_bands_4"] = min(share(a, b) for a, b in zip(pipe_card, pipe_cpu))
+    tiled_frames = [st1_disparity_tiled(lf, rt, 4, cfg, device=dev) for lf, rt in frames]
+    relations = {
+        "st1_sharded_equals_tiled": share(card["st1_sharded_1x4x1"], card["st1_tiled_4"]),
+        "st2_sharded_equals_tiled": share(card["st2_sharded_1x4x1"], card["st2_tiled_4"]),
+        "pipeline_equals_tiled": min(share(a, b) for a, b in zip(pipe_card, tiled_frames)),
+        "tiled_1_equals_st1": share(card["st1_tiled_1"], st.st1_disparity(left, right, cfg)),
+    }
+    ok = (all(v == 1.0 for v in (*equal.values(), *relations.values()))
+          and len(pipe_card) == len(frames))
+    log("18-tiled-card-vs-cpu", shape=[*ST_CHECK_HW, num_d], equal_share_card_vs_cpu=equal,
+        equal_share_on_the_card=relations, pipeline={"frames": len(frames), "group": 2,
+                                                     "bands": 4, "frames_run": frames_run},
+        launches_d=dict(totals), seconds=time.perf_counter() - t_phase, ok=ok)
+    if not ok:
+        raise AssertionError("the per-band ST entries differ between the card and the CPU or "
+                             "from each other")
+    del card, pipe_card, pipe_cpu, tiled_frames
+
+    # 3. Timings at 720x1280, warmed. Each tiled ST-1 band count: one call
+    # with its stages probed (the host stages by the host clock, summed over
+    # bands), whose filter and median calls are replayed on their own inputs
+    # by events and under the profiler; it is also the warm-up of the frame
+    # then timed by the host clock, and the sharded ST-1 on (1, bands, 1)
+    # must equal that frame. Then ST-2, the pipelines, and the accuracy of
+    # each band count.
+    t_phase = time.perf_counter()
+    left, right, truth = st_pair(ST_HW)
+    global_map = st.st1_disparity(left, right, cfg)
+
+    def accuracy(m, reference):
+        diff = (m.to(torch.int32) - reference.to(torch.int32)).abs()
+        return {"within_two_levels_of_global_tree": float(
+                    (diff <= 2 * cfg.disparity_scale).float().mean()),
+                "within_one_level_of_truth": within_one(m, truth, cfg)}
+
+    def host_ms(calls, *names):
+        return sum(ms for name in names for ms, _args, _out in calls[name])
+
+    st1_tiled = {}
+    for bands in TILED_BANDS:
+        with probed(tiled_module, "color_gradient_cost_volume") as cost_calls, \
+                probed(st, "color_edge_weights", "build_segment_tree", "tree_filter_nodes_sb",
+                       "median_filter_u8") as calls, \
+                probed(StridePlan, "from_tree") as emits:
+            probed_map = st1_disparity_tiled(left, right, bands, cfg)
+        calls.update(cost_calls, **emits)
+        frame, tiled_map = host_timed(lambda: st1_disparity_tiled(left, right, bands, cfg))
+        seen = {name: len(v) for name, v in calls.items()}
+        if (seen != {**dict.fromkeys(calls, bands), "color_gradient_cost_volume": 1}
+                or not torch.equal(probed_map, tiled_map)):
+            raise AssertionError(f"tiled ST-1 with {bands} bands: probes saw {seen} calls")
+        filter_args = [args for _ms, args, _out in calls["tree_filter_nodes_sb"]]
+        median_args = [args for _ms, args, _out in calls["median_filter_u8"]]
+
+        def filters():
+            return [tree_filter_nodes_sb(*args) for args in filter_args]
+
+        prof = device_profile(filters, 1, lambda name: "filter")
+        st1_tiled[bands] = {
+            "host_ms": {"edge_weights": host_ms(calls, "color_edge_weights"),
+                        "tree_build": host_ms(calls, "build_segment_tree"),
+                        "plan_emit_and_upload": host_ms(calls, "from_tree")},
+            "host_ms_sum": host_ms(calls, "color_edge_weights", "build_segment_tree",
+                                   "from_tree"),
+            "device_ms": {"cost_volume_by_host_clock": host_ms(calls, "color_gradient_cost_volume"),
+                          "filter_by_events": events_ms(filters),
+                          "median_D_by_events": cuda_ms(lambda: [median_filter_u8(*args)
+                                                                 for args in median_args], 3)},
+            "filter_launches_per_frame": prof.get("device_kernels"),
+            "filter_busy_ms": prof.get("busy_ms"), "filter_idle_share": prof.get("idle_share"),
+            "frame_ms": frame,
+            "rounds_by_band": [min(p.n_real, len(p.buckets)) for _nodes, p in filter_args],
+            **accuracy(tiled_map, global_map)}
+        if bands > 1 and not torch.equal(
+                pst.st1_disparity_sharded(left, right, mesh(bands), cfg), tiled_map):
+            raise AssertionError(f"sharded ST-1 on (1,{bands},1) differs from tiled")
+        log("18-st1-tiled-time", shape=[*ST_HW, num_d], bands=bands,
+            rows_by_band=[nodes.shape[0] // ST_HW[1] for nodes, _p in filter_args],
+            sharded_equals_tiled=True if bands > 1 else None, **st1_tiled[bands])
+        del calls, filter_args, median_args, probed_map
+    torch.cuda.empty_cache()
+
+    # ST-2 with 4 bands: st2_disparity warmed and timed; the sharded entry
+    # run once with its stages probed, which also grows the band layouts;
+    # then tiled timed, equal to sharded.
+    st2, maps2 = {}, {}
+    st2["st2_disparity_frame_ms"], maps2["st2_disparity"] = warm_then_timed(
+        lambda: st.st2_disparity(left, right, cfg))
+    with probed(pst, "_band_trees", "converged_stride_batch", "_st2_phase_a",
+                "color_depth_edge_weights", "_st1_bands") as calls:
+        sharded_ms, sharded = host_timed(lambda: pst.st2_disparity_sharded(left, right, mesh(4),
+                                                                           cfg))
+    st2["tiled_frame_ms"], maps2["tiled"] = host_timed(
+        lambda: st2_disparity_tiled(left, right, 4, cfg))
+    if not torch.equal(sharded, maps2["tiled"]):
+        raise AssertionError("sharded ST-2 on (1,4,1) differs from tiled")
+    trees, emits = ([ms for ms, _a, _o in calls[n]] for n in ("_band_trees",
+                                                              "converged_stride_batch"))
+    st2.update(
+        sharded_probed_frame_ms=sharded_ms,
+        sharded_host_ms={"sigma1_trees_both_views": sum(trees[:2]),
+                         "sigma1_plan_emits_both_views": sum(emits[:2]),
+                         "final_color_depth_weights": host_ms(calls, "color_depth_edge_weights"),
+                         "final_trees": sum(trees[2:]), "final_plan_emit": sum(emits[2:])},
+        sharded_phase_a_ms_with_fetch=host_ms(calls, "_st2_phase_a"),
+        sharded_phase_b_ms_by_host_clock=host_ms(calls, "_st1_bands"),
+        stable_share=float(calls["_st2_phase_a"][0][2][1].mean()),
+        **accuracy(maps2["tiled"], maps2["st2_disparity"]))
+    log("18-st2-tiled-time", shape=[*ST_HW, num_d], bands=4, mesh=[1, 4, 1],
+        sharded_equals_tiled=True, **st2)
+    del maps2, sharded, calls
+
+    # The banded pipeline over 8 frames of their own trees, group 4, 4
+    # workers, beside the per-frame ST-1 over the same frames; each band
+    # count runs the first group once to grow the layout registry, then the
+    # 8 frames timed.
+    frames, _ = st_frames(ST_HW, ST_PIPELINE_FRAMES)
+
+    def timed(run):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = list(run())
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    per_frame, seq_s = timed(lambda: (st.st1_disparity(lf, rt, cfg) for lf, rt in frames))
+    pipelines = {"sequential_st1_disparity": {"fps": len(frames) / seq_s, "seconds": seq_s}}
+    for bands in TILED_BANDS:
+        pipe = SegmentTreeBatchPipeline(cfg, group_size=ST_GROUP, workers=4, bands=bands,
+                                        device=dev)
+        timed(lambda: pipe.process(frames[:ST_GROUP]))
+        maps, seconds = timed(lambda: pipe.process(frames))
+        if bands == 1 and not all(torch.equal(a, b) for a, b in zip(maps, per_frame)):
+            raise AssertionError("the batch pipeline with 1 band differs from st1_disparity")
+        shares = [accuracy(a, b) for a, b in zip(maps, per_frame)]
+        pipelines[f"bands_{bands}"] = {
+            "fps": len(frames) / seconds, "seconds": seconds, "gain_over_sequential": seq_s / seconds,
+            "within_two_levels_of_global_tree": [
+                min(s["within_two_levels_of_global_tree"] for s in shares),
+                max(s["within_two_levels_of_global_tree"] for s in shares)]}
+    log("18-pipelines", shape=[*ST_HW, num_d], frames=len(frames), group=ST_GROUP, workers=4,
+        cpu_count=os.cpu_count(), pipelines=pipelines)
+    del per_frame, maps
+
+    log("18-timings", seconds=time.perf_counter() - t_phase)
+
+    # 4. The middlebury command on a synthetic scene at 360x640: its launches
+    # asserted, its bad-2.0 lines on the card equal to the CPU's. Then bm's
+    # and bm+'s maps, where E1 and E2 run at the harness's D = 80, on the
+    # card equal to the CPU's bit for bit (phase 8 holds E1 and E2 to their
+    # twins at this shape and at 720x1280).
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        middlebury_scene(root, ST_CHECK_HW)
+        lines_card, bare_card = launched(lambda: middlebury_lines(root, "cuda"),
+                                         "middlebury", **MIDDLEBURY_LAUNCHES)
+        _lines_cpu, bare_cpu = middlebury_lines(root, "cpu")
+    if bare_card != bare_cpu or len(bare_card) != len(MIDDLEBURY_PIPELINES.split(",")) + 1:
+        raise AssertionError(f"middlebury on the card printed {bare_card}, on the CPU {bare_cpu}")
+    left, right, _truth = st_pair(ST_CHECK_HW)
+    scene = MiddleburyScene("Synth", left, right, None, None)
+    bm_maps_equal = []
+    for pipeline in ("bm", "bm+"):
+        got = pipeline_disparity(scene, pipeline, device=dev)[0]
+        want = pipeline_disparity(scene, pipeline, device="cpu")[0]
+        if not np.array_equal(got, want):
+            raise AssertionError(f"middlebury {pipeline}: the card's map differs from the CPU's "
+                                 f"(max abs err {int(np.abs(got.astype(np.int64) - want).max())})")
+        bm_maps_equal.append(pipeline)
+    log("18-middlebury", shape=[*ST_CHECK_HW], pipelines=MIDDLEBURY_PIPELINES,
+        card_lines=lines_card, equals_cpu=True, num_disparities=BM_CONFIG.num_disparities,
+        bm_maps_equal_to_cpu=bm_maps_equal, seconds=time.perf_counter() - t_phase,
+        seconds_since_start=time.perf_counter() - started, ok=True)
+    return {"launches": totals, "st1_tiled": st1_tiled, "st2": st2, "pipelines": pipelines}
+
 def main() -> int:
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1764,6 +2153,8 @@ def main() -> int:
     key_kernel = run_sharded_phases(dev, u8, t_a1)
     st1 = run_st1_phase(dev, started)
     st2 = run_st2_phase(dev, started)
+    tiled = run_tiled_phase(dev, started)
+    tiled_launches = tiled["launches"]
 
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "gpu_stereo_matching_tpu")]
@@ -1799,22 +2190,32 @@ def main() -> int:
          "b1_ms": times_f[1]["ms"], "b1_device_ms": times_f[1]["device_ms"]},
         # gray_work: 8 operations a pixel; 3 bytes in, 1 out. No TPU kernel:
         # the JAX package's gray is an XLA tensordot. Launches: the bm CLI's
-        # two images (phase 10).
-        {**kernel_entry("gray_u8", "gray.cu", "", bm_launches["gray"], 0,
+        # two images (phase 10) and the middlebury command's bm and bm+
+        # (phase 18).
+        {**kernel_entry("gray_u8", "gray.cu", "", bm_launches["gray"] + tiled_launches["gray"], 0,
                         times_g["1080p_one_image"]["ms_per_image"],
                         times_g["1080p_one_image"]["plain_ms_per_image"], bound(*gray_work(px)),
                         None, [1080, 1920, 3]),
          "replaces": "gpu_stereo_matching_tpu/ops/color.py:33 (an XLA tensordot, no TPU kernel)",
-         "device_ms": times_g["1080p_one_image"]["device_ms_per_image"]},
+         "device_ms": times_g["1080p_one_image"]["device_ms_per_image"],
+         "launches_by_path": {"bm_cli": bm_launches["gray"], "middlebury": tiled_launches["gray"]}},
         key_kernel,
-        *bm_plus[:2],
-        # Kernel D runs on four paths: once a bm+ frame (phase 10), once an
-        # ST-1 frame (phase 16), three times an ST-2 frame (phase 17) and so
-        # in the streaming pipelines (phase 17); ``launches`` is their sum.
+        # E1 and E2 run on bm+ (phase 10) and through the middlebury command's
+        # bm and bm+ (phase 18).
+        *({**entry, "launches": entry["launches"] + tiled_launches[name],
+           "launches_by_path": {"bm+": entry["launches"], "middlebury": tiled_launches[name]}}
+          for entry, name in zip(bm_plus[:2], ("sad_volume", "wta_from_sad"))),
+        # Kernel D runs on every path with a median: once a bm+ frame (phase
+        # 10), once an ST-1 frame (phase 16), three times an ST-2 frame (phase
+        # 17) and so in the streaming pipelines (phase 17), once a band of a
+        # tiled, sharded or banded ST-1 frame and three times a band of an
+        # ST-2 one, and through the middlebury command (phase 18);
+        # ``launches`` is their sum.
         {**bm_plus[2], "launches": (bm_plus[2]["launches"] + st1["launches"] + st2["launches"]
-                                    + st2["pipeline_launches"]),
+                                    + st2["pipeline_launches"] + tiled_launches["ctmf_median"]),
          "launches_by_path": {"bm+": bm_plus[2]["launches"], "st1": st1["launches"],
-                              "st2": st2["launches"], "st_pipelines": st2["pipeline_launches"]},
+                              "st2": st2["launches"], "st_pipelines": st2["pipeline_launches"],
+                              "per_band_st_and_middlebury": tiled_launches["ctmf_median"]},
          "st1_map_ms_by_shape": st1["median_ms"], "st2_map_ms_by_shape": st2["median_ms"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

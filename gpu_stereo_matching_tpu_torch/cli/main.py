@@ -1,4 +1,4 @@
-"""Command line of the port: the ``st`` and ``bm`` subcommands.
+"""Command line of the port: the ``st``, ``bm`` and ``middlebury`` subcommands.
 
 ``st`` is the reference's STMatching CLI (``STMatching/main.cpp:40-67``):
 a BGR pair in, the ST-1 (``--method st1``, the default) or ST-2
@@ -13,8 +13,13 @@ ignores the post-filters. It runs on the card (``--device cuda``, the
 default) and raises where there is none; ``--device cpu`` runs the plain
 torch versions.
 
+``middlebury`` runs the accuracy harness (``bench/middlebury.py``) over a
+directory of Middlebury scenes and prints each pipeline's bad-2.0 per
+scene, then their mean. Unlike the JAX command, ``--root`` has no default.
+
 Run: ``python -m gpu_stereo_matching_tpu_torch.cli.main st L.png R.png out.png``
 or ``python -m gpu_stereo_matching_tpu_torch.cli.main bm L.png R.png out.png --lr-check --median-radius 3``
+or ``python -m gpu_stereo_matching_tpu_torch.cli.main middlebury --root DIR --pipelines bm,bm+,st1,st2``
 """
 
 from __future__ import annotations
@@ -82,6 +87,22 @@ def _cmd_bm(args) -> int:
     return 0
 
 
+def _cmd_middlebury(args) -> int:
+    from gpu_stereo_matching_tpu_torch.bench.middlebury import run_middlebury_suite
+
+    results = run_middlebury_suite(
+        args.root,
+        pipelines=args.pipelines.split(","),
+        scenes=args.scenes.split(",") if args.scenes else None,
+        device=args.device,
+    )
+    with_gt = [r for r in results if r.bad2 is not None]
+    if with_gt:
+        mean = float(np.mean([r.bad2 for r in with_gt]))
+        print(f"mean bad-2.0 over {len(with_gt)} runs: {100 * mean:.2f}%")
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="gpu_stereo_matching_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
@@ -112,6 +133,16 @@ def build_parser() -> argparse.ArgumentParser:
     bm.add_argument("--colorize", action="store_true", help="turbo-colormap output")
     bm.add_argument("--device", default="cuda", help="cuda (the default), cuda:N or cpu")
     bm.set_defaults(fn=_cmd_bm)
+
+    mb = sub.add_parser("middlebury", help="dataset sweep with bad-2.0")
+    mb.add_argument("--root", required=True,
+                    help="directory of scene folders (view1.png, view5.png, disp1.png, ...)")
+    mb.add_argument("--pipelines", default="bm,st1", help="comma-separated: bm, bm+, st1, st2, "
+                    "opencv-bm, opencv-sgbm")
+    mb.add_argument("--scenes", default=None, help="comma-separated scene names (default: "
+                    "every scene with ground truth)")
+    mb.add_argument("--device", default="cuda", help="cuda (the default), cuda:N or cpu")
+    mb.set_defaults(fn=_cmd_middlebury)
     return p
 
 

@@ -24,7 +24,7 @@ map, which the host needs for the color+depth weights.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -75,16 +75,48 @@ def _st1_device(left_bgr, right_bgr, plan, num_disp: int) -> torch.Tensor:
     return _filter_wta_median(_to_nodes(cost), plan, (h, w))
 
 
+def _equal_bands(x, num_bands: int, dim: int = 0) -> List:
+    """``x`` (a numpy array or a tensor) cut along ``dim`` into ``num_bands``
+    equal bands, top to bottom. Raises unless they divide it: the contract
+    of the banded pipeline and the sharded entries (the tiled ones take
+    unequal bands)."""
+    h = x.shape[dim]
+    if h % num_bands:
+        raise ValueError(f"H={h} must divide into {num_bands} equal bands")
+    hb = h // num_bands
+    lead = (slice(None),) * dim
+    return [x[(*lead, slice(t * hb, (t + 1) * hb))] for t in range(num_bands)]
+
+
 def _st1_device_group(left_b, right_b, plans, num_disp: int) -> torch.Tensor:
     """A frame group: (B, H, W, 3) pairs and a B-stacked :class:`StridePlan`
     → (B, H, W) uint8 median-filtered disparities, one frame after another
-    through :func:`_st1_device` on the inputs' device."""
+    on the inputs' device: the one-band case of
+    :func:`_st1_device_group_banded`."""
+    return _st1_device_group_banded(left_b, right_b, plans, num_disp, 1)
+
+
+def _st1_device_group_banded(left_b, right_b, plans, num_disp: int, num_bands: int) -> torch.Tensor:
+    """A frame group with per-band trees: (B, H, W, 3) pairs and a
+    (B·num_bands)-stacked :class:`StridePlan`, frame g's band t at index
+    g·num_bands + t → (B, H, W) uint8, on the inputs' device.
+
+    Per frame: one full-frame cost volume, cut into ``num_bands`` equal
+    bands (the cost has no vertical taps, so a band's slice is the cost of
+    its crop, bit for bit); each band runs filter → WTA → 7×7 median on its
+    own tree, and the bands are concatenated. Equal to
+    ``models.segment_tree_tiled.st1_disparity_tiled`` with equal bands.
+    """
     if not isinstance(plans, StridePlan):
         raise TypeError(f"expected a stacked StridePlan, got {type(plans).__name__}")
-    return torch.stack([
-        _st1_device(left_b[g], right_b[g], plans.frame(g), num_disp)
-        for g in range(left_b.shape[0])
-    ])
+    outs = []
+    for g in range(left_b.shape[0]):
+        cost = color_gradient_cost_volume(left_b[g], right_b[g], num_disp)
+        outs.append(torch.cat([
+            _filter_wta_median(_to_nodes(band), plans.frame(g * num_bands + t), band.shape[1:])
+            for t, band in enumerate(_equal_bands(cost, num_bands, dim=1))
+        ]))
+    return torch.stack(outs)
 
 
 def _st2_phase1_group(left_b, right_b, plans_lr, num_disp: int, lr_max_diff: int) -> torch.Tensor:

@@ -33,12 +33,14 @@ import torch
 from gpu_stereo_matching_tpu_torch.core.config import SegmentTreeConfig
 from gpu_stereo_matching_tpu_torch.device import resolve_device
 from gpu_stereo_matching_tpu_torch.models.segment_tree import (
+    _equal_bands,
     _final_tree,
     _pair,
     _scale_u8,
     _sigma1_tree,
     _st1_device,
     _st1_device_group,
+    _st1_device_group_banded,
     _st2_phase1_group,
     _unpack_phase1,
 )
@@ -116,10 +118,14 @@ class SegmentTreeVideoPipeline:
 class SegmentTreeBatchPipeline:
     """Batched streaming ST-1: G frames per device group.
 
-    The host stage of a group (G tree builds and plan emits on a pool of
-    ``workers`` threads, converged to one layout and stacked) runs on a
-    stage thread while the previous group's device work is enqueued. A short
-    last group is padded by repeating its last frame and trimmed on output.
+    The host stage of a group (G·``bands`` tree builds and plan emits on a
+    pool of ``workers`` threads, converged to one layout and stacked) runs
+    on a stage thread while the previous group's device work is enqueued. A
+    short last group is padded by repeating its last frame and trimmed on
+    output. ``bands > 1`` builds that many equal-height per-band trees a
+    frame (H must divide into them): the maps are then those of
+    ``models.segment_tree_tiled.st1_disparity_tiled(…, bands)``, bit for
+    bit; ``bands=1`` gives ``st1_disparity``'s.
     """
 
     def __init__(
@@ -134,20 +140,18 @@ class SegmentTreeBatchPipeline:
             raise ValueError("group_size must be >= 1")
         if bands < 1:
             raise ValueError("bands must be >= 1")
-        if bands > 1:
-            raise NotImplementedError(
-                "bands > 1 (per-band trees) comes with the tiled segment-tree slice of the "
-                "port (models/segment_tree_tiled.py and _st1_device_group_banded); use bands=1"
-            )
         self.config = config
         self.group_size = group_size
         self.workers = workers
+        self.bands = bands
         self.device = resolve_device(device)
 
     def _host_build_group(self, group: List[Frame], pool):
         lefts, rights = _padded(group, self.group_size)
         plans = converge_stride_plans(
-            [lambda im=im: _st1_plan(im, self.config) for im in lefts.numpy()], pool)
+            [lambda im=im: _st1_plan(im, self.config)
+             for frame in lefts.numpy() for im in _equal_bands(frame, self.bands)],
+            pool)
         return lefts, rights, plans, len(group)
 
     def process(self, frames: Iterable[Frame]) -> Iterator[torch.Tensor]:
@@ -164,8 +168,8 @@ class SegmentTreeBatchPipeline:
                 nxt = next(groups, None)
                 cur_host = (stage.submit(self._host_build_group, nxt, pool)
                             if nxt is not None else None)
-                out = _st1_device_group(lefts.to(dev), rights.to(dev), plans.to(dev),
-                                        cfg.max_disp_levels)
+                out = _st1_device_group_banded(lefts.to(dev), rights.to(dev), plans.to(dev),
+                                               cfg.max_disp_levels, self.bands)
                 for row in out[:n_real]:
                     yield _scale_u8(row, cfg.disparity_scale)
 

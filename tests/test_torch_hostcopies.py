@@ -1,5 +1,6 @@
 """The port's own copies of the plain-numpy host modules (configuration,
-calibration YAML, image I/O, disparity colouring, rectification maps) give
+calibration YAML, image I/O, disparity colouring, rectification maps, the
+Middlebury scenes and metrics) give
 what the JAX package's modules give on the same inputs, so the copies
 cannot drift unseen. Only the tests import both packages."""
 
@@ -12,11 +13,13 @@ from gpu_stereo_matching_tpu.calib import rectify as jrectify
 from gpu_stereo_matching_tpu.core import config as jconfig
 from gpu_stereo_matching_tpu.io import calib_yaml as jyaml
 from gpu_stereo_matching_tpu.io import images as jimages
+from gpu_stereo_matching_tpu.io import middlebury as jmb
 from gpu_stereo_matching_tpu.io import visualize as jvis
 from gpu_stereo_matching_tpu_torch.calib import rectify as trectify
 from gpu_stereo_matching_tpu_torch.core import config as tconfig
 from gpu_stereo_matching_tpu_torch.io import calib_yaml as tyaml
 from gpu_stereo_matching_tpu_torch.io import images as timages
+from gpu_stereo_matching_tpu_torch.io import middlebury as tmb
 from gpu_stereo_matching_tpu_torch.io import visualize as tvis
 
 
@@ -157,3 +160,50 @@ def test_port_rig_takes_either_package_calibration():
     theirs = StereoRig(small(jyaml), (36, 64), cfg, device="cpu")
     for name in MAP_NAMES:
         assert torch.equal(getattr(ours, name), getattr(theirs, name))
+
+
+def _gt_pair(seed, h=20, w=31):
+    """Random third-size GT maps (0 = unknown) and a disparity map."""
+    rng = np.random.default_rng(seed)
+    gt_l = rng.integers(0, 3 * 12, (h, w)).astype(np.uint8)
+    gt_r = np.clip(gt_l.astype(int) + rng.integers(-4, 5, (h, w)), 0, 255).astype(np.uint8)
+    gt_l[rng.random((h, w)) < 0.1] = 0
+    return gt_l, gt_r, rng.integers(0, 14, (h, w)).astype(np.uint8)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_middlebury_metrics_agree(seed):
+    gt_l, gt_r, disp = _gt_pair(seed)
+    assert tmb.GT_SCALE == jmb.GT_SCALE
+    mask = tmb.nonocc_mask(gt_l, gt_r)
+    np.testing.assert_array_equal(mask, jmb.nonocc_mask(gt_l, gt_r))
+    np.testing.assert_array_equal(tmb.nonocc_mask(gt_l, gt_r, 2.0), jmb.nonocc_mask(gt_l, gt_r, 2.0))
+    for kwargs in ({}, {"delta": 1.0}, {"disp_scale": 4.0, "gt_scale": 1.0}, {"mask": mask}):
+        assert tmb.bad_pixel_rate(disp, gt_l, **kwargs) == jmb.bad_pixel_rate(disp, gt_l, **kwargs)
+
+
+def test_middlebury_scenes_load_alike(tmp_path):
+    """Scenes with and without ground truth and a folder that is no scene."""
+    rng = np.random.default_rng(6)
+    for name, gt in (("Art", True), ("Computer", False)):
+        d = tmp_path / name
+        d.mkdir()
+        for view in ("view1", "view5"):
+            timages.save_image(d / f"{view}.png", rng.integers(0, 256, (9, 13, 3), dtype=np.uint8))
+        if gt:
+            for disp in ("disp1", "disp5"):
+                timages.save_image(d / f"{disp}.png", rng.integers(0, 256, (9, 13), dtype=np.uint8))
+    (tmp_path / "notes").mkdir()
+    for gt_only in (False, True):
+        assert (tmb.list_middlebury_scenes(tmp_path, gt_only)
+                == jmb.list_middlebury_scenes(tmp_path, gt_only)
+                == (["Art"] if gt_only else ["Art", "Computer"]))
+    for name in ("Art", "Computer"):
+        ours, theirs = tmb.load_middlebury_scene(tmp_path, name), jmb.load_middlebury_scene(
+            tmp_path, name)
+        assert ours.name == theirs.name == name
+        for field in ("left_bgr", "right_bgr", "gt_left", "gt_right"):
+            a, b = getattr(ours, field), getattr(theirs, field)
+            assert (a is None) == (b is None) == (name == "Computer" and field.startswith("gt"))
+            if a is not None:
+                np.testing.assert_array_equal(a, b)

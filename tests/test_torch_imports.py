@@ -15,6 +15,7 @@ PORT_MODULES = [
     "gpu_stereo_matching_tpu_torch.io.calib_yaml",
     "gpu_stereo_matching_tpu_torch.io.images",
     "gpu_stereo_matching_tpu_torch.io.visualize",
+    "gpu_stereo_matching_tpu_torch.io.middlebury",
     "gpu_stereo_matching_tpu_torch.calib.rectify",
     "gpu_stereo_matching_tpu_torch.ops.color",
     "gpu_stereo_matching_tpu_torch.ops.remap",
@@ -25,6 +26,7 @@ PORT_MODULES = [
     "gpu_stereo_matching_tpu_torch.models.block_matching",
     "gpu_stereo_matching_tpu_torch.models.segment_tree",
     "gpu_stereo_matching_tpu_torch.models.segment_tree_stream",
+    "gpu_stereo_matching_tpu_torch.models.segment_tree_tiled",
     "gpu_stereo_matching_tpu_torch.tree",
     "gpu_stereo_matching_tpu_torch.tree.builder",
     "gpu_stereo_matching_tpu_torch.tree.hpd",
@@ -45,8 +47,10 @@ PORT_MODULES = [
     "gpu_stereo_matching_tpu_torch.parallel.halo",
     "gpu_stereo_matching_tpu_torch.parallel.stereo",
     "gpu_stereo_matching_tpu_torch.parallel.launch",
+    "gpu_stereo_matching_tpu_torch.parallel.segment_tree",
     "gpu_stereo_matching_tpu_torch.bench.fused_kernel",
     "gpu_stereo_matching_tpu_torch.bench.scaling",
+    "gpu_stereo_matching_tpu_torch.bench.middlebury",
 ]
 
 # Modules that must not be loaded once the port is: jax, and the JAX package

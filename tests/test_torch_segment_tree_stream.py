@@ -90,8 +90,9 @@ def test_pipelines_take_tensors_and_check_pairs():
 
 
 def test_batch_pipeline_refuses_bands_and_bad_groups():
-    with pytest.raises(NotImplementedError, match="tiled segment-tree slice"):
-        SegmentTreeBatchPipeline(CFG, bands=2, device="cpu")
+    pipe = SegmentTreeBatchPipeline(CFG, bands=2, device="cpu")
+    with pytest.raises(ValueError, match="H=9 must divide into 2 equal bands"):
+        list(pipe.process(_frames(14, 2, h=9)))
     with pytest.raises(ValueError, match="bands must be >= 1"):
         SegmentTreeBatchPipeline(CFG, bands=0, device="cpu")
     for cls in (SegmentTreeBatchPipeline, SegmentTreeST2BatchPipeline):
