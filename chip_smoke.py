@@ -167,7 +167,30 @@ Phases, each printing its own line:
    times and prints the CPU's bad-2.0 lines; then the harness's bm and bm+
    maps (D = 80) on the card equal the CPU's bit for bit.
    To run it alone: ``run_tiled_phase(torch.device("cuda:0"),
-   time.perf_counter())`` after the build of phase 2.
+   time.perf_counter())`` after the build of phase 2;
+19. the sharded step across processes and the rig's calibration workflow:
+   (a) two gloo ranks on ``cuda:0``, each this script re-run as
+   ``chip_smoke.py --rank RANK PORT DIR``, run the step (1080x1920, B=8,
+   D=64, r=5) with ``space`` across the ranks on (1, 2, 1) and ``disp``
+   across them on (1, 1, 2): each rank launches the key kernel once a step,
+   its pieces equal the single-controller step and the fused kernel bit
+   for bit, and the line prints the step's time (its slowest rank's, by
+   CUDA events; a rehearsal, since gloo stages halos and keys through host
+   memory) beside the single-controller step's; a rank that exits non-zero
+   fails the phase; (b) one NCCL rank in this process runs the step on
+   (1, 2, 2) with ``disp`` reduced by ``all_reduce(MIN)`` on the card's keys:
+   4 launches, equal to the fused kernel and the single-controller step;
+   (c) where there are two or more cards, ``parallel/launch.py`` with one
+   NCCL rank a card and the single-controller launcher over the same cards,
+   fps per ``data``, else a line saying it did not run; (d) ``calibrate``
+   on four board poses rendered through a pinhole rig (1000 px focal
+   length, 60 mm baseline) at 720x1280, which must recover the focal length
+   and the baseline within 5%, then ``rectify`` at 720x1280 and with
+   ``--size 640x360`` on the card (one front-end launch a call, no other
+   kernel) and on the CPU, PNGs equal, then ``bm --gray`` on the rectified
+   pair, the card's PNG equal to the CPU's. To run it alone:
+   ``run_process_phase(torch.device("cuda:0"), time.perf_counter())`` after
+   ``_build.build()``; (c) alone: ``run_multi_card()``.
 
 Each kernel's entry of the summary line carries its bound: the least time
 the card could take, the larger of its bytes (each input read once, each
@@ -1883,6 +1906,398 @@ def run_tiled_phase(dev, started: float) -> dict:
         seconds_since_start=time.perf_counter() - started, ok=True)
     return {"launches": totals, "st1_tiled": st1_tiled, "st2": st2, "pipelines": pipelines}
 
+PROCESS_HW = (1080, 1920)    # the multi-process steps' frames, B = 8
+RANK_TIMEOUT_S = 300
+MULTI_CARD_FRAMES = (8, 64)  # batches of the launchers' data sweeps across cards
+RIG_HW = (720, 1280)         # the rendered captures of the calibrate, rectify, bm flow
+BOARD = (6, 6, 40.0)         # inner corners per row and column, square size in mm
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def spawn(argvs, what: str):
+    """Run one process per argv (this interpreter, from the repository
+    root); kill them all past ``RANK_TIMEOUT_S``; fail if any exits non-zero.
+    Returns their outputs."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen([sys.executable, *argv], cwd=root, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for argv in argvs]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=RANK_TIMEOUT_S)[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.wait()
+        raise AssertionError(f"{what}: a process outlived {RANK_TIMEOUT_S} s")
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"{what}: process {i} exited {p.returncode}:\n{out[-4000:]}")
+    return outs
+
+
+def process_batch():
+    """The rehearsal's 8 frame pairs, alike on every rank."""
+    rng = np.random.default_rng(SEED + 19)
+    return tuple(torch.from_numpy(rng.integers(0, 256, (8, *PROCESS_HW), dtype=np.uint8))
+                 for _ in range(2))
+
+
+def process_layouts(world: int) -> dict:
+    """The axis laid across ``world`` ranks -> the mesh: one coordinate a rank."""
+    return {"data": (world, 1, 1), "space": (1, world, 1), "disp": (1, 1, world)}
+
+
+def rank_worker(argv) -> int:
+    """One rank of phase 19, ``chip_smoke.py --rank RANK WORLD PORT DIR
+    BACKEND``: under gloo every rank on ``cuda:0``, under NCCL rank r on
+    ``cuda:r``. For each layout of :func:`process_layouts`: the step across
+    the ranks with the key kernel's counter from 0, this rank's pieces
+    against the single-controller step and the fused kernel on its card,
+    the step's time (its slowest rank's, by CUDA events), two of its parts
+    alone on this rank (the key kernel on a slab of its share,
+    ``all_reduce(MIN)`` of keys of its share over its group) and, on rank 0
+    while the others wait, the single-controller step's on its card.
+    Writes ``DIR/rank<RANK>.json``."""
+    rank, world, port, out_dir, backend = int(argv[0]), int(argv[1]), argv[2], argv[3], argv[4]
+    from gpu_stereo_matching_tpu_torch import BlockMatchingConfig
+    from gpu_stereo_matching_tpu_torch.bench.scaling import time_step
+    from gpu_stereo_matching_tpu_torch.core.config import MeshConfig
+    from gpu_stereo_matching_tpu_torch.kernels import _build, sad_wta
+    import torch.distributed as dist
+
+    from gpu_stereo_matching_tpu_torch.parallel.collectives import all_reduce, barrier
+    from gpu_stereo_matching_tpu_torch.parallel.launch import initialize_distributed
+    from gpu_stereo_matching_tpu_torch.parallel.mesh import process_mesh, virtual_mesh
+    from gpu_stereo_matching_tpu_torch.parallel.stereo import (
+        make_sharded_block_matching,
+        own_pieces,
+        shard_batch,
+        unshard,
+    )
+
+    dev = initialize_distributed(f"localhost:{port}", world, rank, backend=backend,
+                                 device="cuda:0" if backend == "gloo" else f"cuda:{rank}",
+                                 timeout=RANK_TIMEOUT_S)
+    _build.load_library()
+    cfg = BlockMatchingConfig(num_disparities=64, sad_radius=5)
+    left, right = process_batch()
+    fused = sad_wta.fused_block_matching_batched(left.to(dev), right.to(dev), 64, 5)
+    found = {}
+    for across, shape in process_layouts(world).items():
+        mesh = process_mesh(MeshConfig(*shape), [dev], across=across)
+        step = make_sharded_block_matching(mesh, cfg)
+        sl, sr = shard_batch(mesh, left, right)
+        torch.cuda.synchronize()
+        sad_wta.KEY_LAUNCHES = 0
+        pieces = own_pieces(step(sl, sr))
+        torch.cuda.synchronize()
+        launches = sad_wta.KEY_LAUNCHES
+        one = virtual_mesh(MeshConfig(*shape), dev)
+        single_step = make_sharded_block_matching(one, cfg)
+        sl1, sr1 = shard_batch(one, left, right)
+        single = unshard(single_step(sl1, sr1))
+        frames, rows, count = 8 // shape[0], PROCESS_HW[0] // shape[1], 64 // shape[2]
+        equal = {"single_controller": True, "fused_kernel": True}
+        for (i, j), piece in pieces.items():
+            block = (slice(i * frames, (i + 1) * frames), slice(j * rows, (j + 1) * rows))
+            equal["single_controller"] &= torch.equal(piece, single[block])
+            equal["fused_kernel"] &= torch.equal(piece, fused[block])
+        step_ms = time_step(mesh, lambda: step(sl, sr), reps=5) * 1e3
+        slab = torch.randint(0, 256, (frames, rows + 10, PROCESS_HW[1]), dtype=torch.uint8,
+                             device=dev)
+        keys = torch.zeros((frames, rows, PROCESS_HW[1]), dtype=torch.int32, device=dev)
+        group = mesh.disp_groups[next(iter(pieces))]
+        parts_ms = {
+            "key_kernel": cuda_ms(lambda: sad_wta.fused_block_matching_key(
+                slab, slab, 0, count, 64, 5)),
+            "all_reduce_min": cuda_ms(lambda: all_reduce(keys, dist.ReduceOp.MIN, group))}
+        single_ms = time_step(one, lambda: single_step(sl1, sr1), reps=5) * 1e3 if rank == 0 \
+            else None
+        barrier()
+        found[across] = {"mesh": list(shape), "pieces": sorted(pieces), "equal": equal,
+                         "key_kernel_launches": launches, "step_ms": step_ms,
+                         "parts_ms": parts_ms, "single_controller_step_ms": single_ms}
+    dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(found, f)
+    return 0
+
+
+def render_board(h_mat, hw, cols: int, rows: int, square: float):
+    """A chessboard of ``cols`` x ``rows`` inner corners, ``square`` units a
+    square, seen through homography ``h_mat`` (board units -> pixels), white
+    beyond it, at 2x2 supersampling and a slight blur: (H, W) uint8."""
+    from scipy.ndimage import gaussian_filter
+
+    ss = 2
+    yy, xx = (np.mgrid[0:hw[0] * ss, 0:hw[1] * ss] + 0.5) / ss - 0.5
+    src = np.linalg.inv(h_mat) @ np.stack([xx.ravel(), yy.ravel(), np.ones(xx.size)])
+    bx, by = src[0] / src[2] + square, src[1] / src[2] + square  # board origin at a corner
+    inside = (bx >= 0) & (bx < (cols + 1) * square) & (by >= 0) & (by < (rows + 1) * square)
+    dark = inside & ((np.floor(bx / square) + np.floor(by / square)) % 2 == 0)
+    img = np.where(dark, 40.0, 215.0).reshape(hw[0], ss, hw[1], ss).mean((1, 3))
+    return np.clip(gaussian_filter(img, 0.8), 0, 255).astype(np.uint8)
+
+
+def rig_views(hw, square: float):
+    """Homographies of four board poses seen by a left camera and by a
+    right camera 60 mm beside it (a pinhole rig: K [r1 r2 t], board units
+    in mm, the first inner corner at the origin), and the rig's truth."""
+    def rodrigues(v):
+        t = np.linalg.norm(v)
+        k = np.asarray(v) / t
+        kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+        return np.eye(3) + np.sin(t) * kx + (1 - np.cos(t)) * kx @ kx
+
+    k_left = np.array([[1000.0, 0, hw[1] / 2], [0, 1000.0, hw[0] / 2], [0, 0, 1]])
+    k_right = np.array([[1004.0, 0, hw[1] / 2 + 3], [0, 1003.0, hw[0] / 2 - 2], [0, 0, 1]])
+    r_rel, t_rel = rodrigues([0.002, -0.01, 0.001]), np.array([-60.0, 0.4, 0.5])
+    centre = np.array([2.5 * square, 2.5 * square, 0])
+    views = []
+    for rv in ([0.35, 0.1, 0.02], [-0.3, 0.25, -0.03], [0.05, -0.4, 0.04], [0.2, 0.3, 0.1]):
+        r = rodrigues(rv)
+        t = np.array([20.0, -10.0, 700.0]) - r @ centre
+        pair = []
+        for k, rr, tt in ((k_left, r, t), (k_right, r_rel @ r, r_rel @ t + t_rel)):
+            pair.append(k @ np.stack([rr[:, 0], rr[:, 1], tt], axis=1))
+        views.append(pair)
+    return views, k_left, np.linalg.norm(t_rel)
+
+
+def run_ranks(world: int, backend: str) -> dict:
+    """Phase 19's step across ``world`` ranks of ``rank_worker``: each rank's
+    pieces must equal the single-controller step and the fused kernel, and
+    each rank must launch the key kernel once a step. Logs the layouts and
+    returns the launches."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        port = free_port()
+        spawn([[os.path.abspath(__file__), "--rank", str(r), str(world), str(port), tmp, backend]
+               for r in range(world)], f"{backend} ranks")
+        ranks = [json.loads(open(os.path.join(tmp, f"rank{r}.json")).read())
+                 for r in range(world)]
+    layouts = {}
+    for across in process_layouts(world):
+        for r, found in enumerate(ranks):
+            got = found[across]
+            if got["equal"] != {"single_controller": True, "fused_kernel": True} or \
+                    got["key_kernel_launches"] != 1 or not got["pieces"]:
+                raise AssertionError(f"{backend} rank {r}, {across} across the ranks: {got}")
+        layouts[across] = {
+            "mesh": ranks[0][across]["mesh"],
+            "pieces_by_rank": [found[across]["pieces"] for found in ranks],
+            "key_kernel_launches_by_rank": [found[across]["key_kernel_launches"]
+                                            for found in ranks],
+            "step_ms_slowest_rank": ranks[0][across]["step_ms"],
+            "parts_ms_by_rank": [found[across]["parts_ms"] for found in ranks],
+            "single_controller_step_ms_rank_0_card": ranks[0][across]["single_controller_step_ms"]}
+    log(f"19-multi-process-{backend}", shape=[8, *PROCESS_HW, 64, 5], ranks=world,
+        backend=backend, devices="cuda:0 for every rank" if backend == "gloo" else "cuda:RANK",
+        layouts=layouts, equals_single_controller_and_fused_kernel=True,
+        note="two ranks share one card and stage halos and keys through host memory (gloo): a "
+             "rehearsal, not a scaling result" if backend == "gloo" else "one rank a card",
+        seconds=time.perf_counter() - t_phase, ok=True)
+    by_rank = {across: v["key_kernel_launches_by_rank"] for across, v in layouts.items()}
+    return {"launches": sum(sum(v) for v in by_rank.values()), "launches_by_rank": by_rank,
+            "layouts": layouts}
+
+
+def run_process_phase(dev, started: float) -> dict:
+    """Phase 19: the sharded step across processes (two gloo ranks on this
+    card, then one NCCL rank, then NCCL over every card where there are
+    several) and the rig's calibrate, rectify, bm flow through the command
+    line on rendered captures. Returns the key kernel's and the front end's
+    launches and the phase's numbers."""
+    import io
+
+    import torch.distributed as dist
+    from PIL import Image
+
+    from gpu_stereo_matching_tpu_torch import BlockMatchingConfig
+    from gpu_stereo_matching_tpu_torch.bench.scaling import time_step
+    from gpu_stereo_matching_tpu_torch.cli.main import main as cli_main
+    from gpu_stereo_matching_tpu_torch.core.config import MeshConfig
+    from gpu_stereo_matching_tpu_torch.io.calib_yaml import load_opencv_stereo_yaml
+    from gpu_stereo_matching_tpu_torch.kernels import sad_wta
+    from gpu_stereo_matching_tpu_torch.parallel.launch import initialize_distributed
+    from gpu_stereo_matching_tpu_torch.parallel.mesh import process_mesh, virtual_mesh
+    from gpu_stereo_matching_tpu_torch.parallel.stereo import (
+        make_sharded_block_matching,
+        shard_batch,
+        unshard,
+    )
+
+    # (a) Two gloo ranks on this card, each a process of this script.
+    gloo = run_ranks(2, "gloo")
+
+    # (b) One NCCL rank in this process: NCCL's set-up and all_reduce(MIN)
+    # on the card's keys, four disp parts on (1, 2, 2).
+    t_phase = time.perf_counter()
+    initialize_distributed(f"localhost:{free_port()}", 1, 0, device=dev, timeout=RANK_TIMEOUT_S)
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"one-rank group on {dev} runs {dist.get_backend()}, not nccl")
+        cfg = BlockMatchingConfig(num_disparities=64, sad_radius=5)
+        left, right = process_batch()
+        mesh = process_mesh(MeshConfig(1, 2, 2), [dev] * 4, across="disp")
+        step = make_sharded_block_matching(mesh, cfg)
+        sl, sr = shard_batch(mesh, left, right)
+        torch.cuda.synchronize()
+        sad_wta.KEY_LAUNCHES = 0
+        got = unshard(step(sl, sr), dev)
+        torch.cuda.synchronize()
+        nccl_launches = sad_wta.KEY_LAUNCHES
+        one = virtual_mesh(MeshConfig(1, 2, 2), dev)
+        single_step = make_sharded_block_matching(one, cfg)
+        sl1, sr1 = shard_batch(one, left, right)
+        fused = sad_wta.fused_block_matching_batched(left.to(dev), right.to(dev), 64, 5)
+        if nccl_launches != 4 or not torch.equal(got, fused) or \
+                not torch.equal(got, unshard(single_step(sl1, sr1))):
+            raise AssertionError(f"one NCCL rank: {nccl_launches} key launches, or the result "
+                                 "differs from the fused kernel or the single-controller step")
+        nccl_ms = time_step(mesh, lambda: step(sl, sr), reps=5) * 1e3
+        single_ms = time_step(one, lambda: single_step(sl1, sr1), reps=5) * 1e3
+    finally:
+        dist.destroy_process_group()
+    log("19-multi-process-nccl-one-rank", mesh=[1, 2, 2], shape=[8, *PROCESS_HW, 64, 5],
+        key_kernel_launches=nccl_launches, step_ms=nccl_ms, single_controller_step_ms=single_ms,
+        equals_single_controller_and_fused_kernel=True,
+        seconds=time.perf_counter() - t_phase, ok=True)
+    del got, fused, sl, sr, sl1, sr1
+    torch.cuda.empty_cache()
+
+    # (c) NCCL across the cards, where there are several.
+    multi_card = run_multi_card() if torch.cuda.device_count() >= 2 else None
+    if multi_card is None:
+        log("19-multi-process-nccl-cards", ran=False,
+            note=f"not run: {torch.cuda.device_count()} card(s) visible, it needs 2 or more")
+
+    # (d) calibrate, rectify, bm through the command line on rendered captures.
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    cols, rows, square = BOARD
+    views, k_true, baseline = rig_views(RIG_HW, square)
+    for i, pair in enumerate(views):
+        for side, h_mat in zip(("Left", "Right"), pair):
+            Image.fromarray(render_board(h_mat, RIG_HW, cols, rows, square)).save(
+                os.path.join(tmp.name, f"{side}_{i}.png"))
+    t_render = time.perf_counter() - t_phase
+    path = {n: os.path.join(tmp.name, n) for n in ("calib.yml", "Left_0.png", "Right_0.png")}
+    printed = io.StringIO()
+
+    def cli(argv, what):
+        with contextlib.redirect_stdout(printed):
+            rc = cli_main(argv)
+        if rc != 0:
+            raise AssertionError(f"{what} returned {rc}:\n{printed.getvalue()[-2000:]}")
+
+    t0 = time.perf_counter()
+    cli(["calibrate", os.path.join(tmp.name, "Left_*.png"), os.path.join(tmp.name, "Right_*.png"),
+         path["calib.yml"], "--cols", str(cols), "--rows", str(rows), "--square-size",
+         str(square)], "calibrate")
+    t_calibrate = time.perf_counter() - t0
+    calib = load_opencv_stereo_yaml(path["calib.yml"])
+    fx_err = abs(calib.left_intrinsics[0, 0] / k_true[0, 0] - 1)
+    t_err = abs(np.linalg.norm(calib.translation) / baseline - 1)
+    if not (np.isfinite(calib.rotation).all() and fx_err < 0.05 and t_err < 0.05):
+        raise AssertionError(f"calibrate: fx off by {fx_err:.3f}, |T| off by {t_err:.3f}")
+
+    def read(name):
+        with Image.open(os.path.join(tmp.name, name)) as im:
+            return np.asarray(im)
+
+    rectify_launches, rectify_ms = 0, {}
+    for tag, extra in (("720p", []), ("size_640x360", ["--size", "640x360"])):
+        args = ["rectify", "--calib", path["calib.yml"], "--left", path["Left_0.png"],
+                "--right", path["Right_0.png"], *extra]
+        for device in ("cuda", "cpu"):
+            zero_launches()
+            ms, _ = host_timed(lambda: cli([*args, "--out-prefix",
+                                            os.path.join(tmp.name, f"{tag}_{device}"),
+                                            "--device", device], "rectify"))
+            counts = {k: v for k, v in all_launches().items() if v}
+            want = {"front_end": 1} if device == "cuda" else {}
+            if counts != want:
+                raise AssertionError(f"rectify {tag} --device {device} launched {counts}")
+            rectify_ms[f"{tag}_{device}"] = ms
+        rectify_launches += 1
+        for view in ("left", "right"):
+            card, cpu = read(f"{tag}_cuda_{view}.png"), read(f"{tag}_cpu_{view}.png")
+            if card.shape != cpu.shape or not np.array_equal(card, cpu):
+                raise AssertionError(f"rectify {tag}: the card's {view} PNG differs from the CPU's")
+    valid = float((read("720p_cuda_left.png") > 0).mean())
+    if read("720p_cuda_left.png").shape != RIG_HW or valid < 0.8:
+        raise AssertionError(f"rectify: {valid:.3f} of the rectified view is valid")
+    bm_args = ["bm", os.path.join(tmp.name, "720p_cuda_left.png"),
+               os.path.join(tmp.name, "720p_cuda_right.png")]
+    for device in ("cuda", "cpu"):
+        cli([*bm_args, os.path.join(tmp.name, f"bm_{device}.png"), "--gray", "--device",
+             device], "bm")
+    if not np.array_equal(read("bm_cuda.png"), read("bm_cpu.png")):
+        raise AssertionError("bm on the rectified pair: the card's PNG differs from the CPU's")
+    tmp.cleanup()
+    log("19-rectify-cli", captures=len(views), board=[cols, rows, square], hw=[*RIG_HW],
+        calibrate_fx_rel_err=fx_err, calibrate_baseline_rel_err=t_err,
+        rectify_front_end_launches=rectify_launches, rectify_ms_host_clock=rectify_ms,
+        rectified_valid_share=valid, rectify_png_card_equals_cpu=True,
+        bm_png_card_equals_cpu=True, render_s=t_render, calibrate_s=t_calibrate,
+        seconds=time.perf_counter() - t_phase, ok=True)
+    return {"key_launches": gloo["launches"] + nccl_launches
+            + (multi_card["key_launches"] if multi_card else 0),
+            "gloo_key_launches": gloo["launches_by_rank"],
+            "nccl_key_launches": nccl_launches, "rectify_launches": rectify_launches,
+            "multi_card": multi_card}
+
+
+def run_multi_card() -> dict:
+    """Phase 19 (c): the step with one NCCL rank a card, ``space`` and then
+    ``disp`` across every card (:func:`run_ranks`); then, for each batch of
+    ``MULTI_CARD_FRAMES``, the launcher with one NCCL rank a card (the
+    ``data`` sweep) and the single-controller launcher over the same cards
+    in this process, each point's fps."""
+    import io
+
+    from gpu_stereo_matching_tpu_torch.parallel import launch
+
+    n = torch.cuda.device_count()
+    steps = run_ranks(n, "nccl")
+    t_phase = time.perf_counter()
+    found = {"cards": n, "key_launches": steps["launches"]}
+    for frames in MULTI_CARD_FRAMES:
+        port = free_port()
+        outs = spawn([["-m", "gpu_stereo_matching_tpu_torch.parallel.launch", "--coordinator",
+                       f"localhost:{port}", "--num-processes", str(n), "--process-id", str(r),
+                       "--device", f"cuda:{r}", "--frames", str(frames)] for r in range(n)],
+                     "NCCL ranks")
+        ranked = [json.loads(s) for s in outs[0].splitlines() if s.startswith("{")]
+        captured = io.StringIO()
+        with contextlib.redirect_stdout(captured):
+            launch.main(["--frames", str(frames), "--device", "cuda"])
+        single = [json.loads(s) for s in captured.getvalue().splitlines()]
+        if [p["processes"] for p in ranked] != [p["devices"] for p in ranked] or \
+                [p["distinct_devices"] for p in single] != [p["devices"] for p in single]:
+            raise AssertionError(f"NCCL launch: {ranked}, single controller: {single}")
+        found[f"frames_{frames}"] = {
+            "fps_by_data": {"ranks": {p["mesh"]["data"]: p["fps"] for p in ranked},
+                            "single_controller": {p["mesh"]["data"]: p["fps"] for p in single}},
+            "efficiency_by_data": {
+                "ranks": {p["mesh"]["data"]: p["efficiency"] for p in ranked},
+                "single_controller": {p["mesh"]["data"]: p["efficiency"] for p in single}}}
+    log("19-multi-process-nccl-cards", shape=[1080, 1920, 64, 5], **found,
+        seconds=time.perf_counter() - t_phase, ok=True)
+    found["layouts"] = steps["layouts"]
+    return found
+
+
 def main() -> int:
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2155,6 +2570,7 @@ def main() -> int:
     st2 = run_st2_phase(dev, started)
     tiled = run_tiled_phase(dev, started)
     tiled_launches = tiled["launches"]
+    processes = run_process_phase(dev, started)
 
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "gpu_stereo_matching_tpu")]
@@ -2187,7 +2603,11 @@ def main() -> int:
                         times_f[8]["ms"], times_f[8]["plain_ms"],
                         bound(*remap_work(8, n_720, 2, True)), None, [2, 8, *size_hw, 3]),
          "device_ms": times_f[8]["device_ms"], "composition_ms": times_f[8]["composition_ms"],
-         "b1_ms": times_f[1]["ms"], "b1_device_ms": times_f[1]["device_ms"]},
+         "b1_ms": times_f[1]["ms"], "b1_device_ms": times_f[1]["device_ms"],
+         "launches": (launches["front_end_single"] + launches["front_end_batched"]
+                      + processes["rectify_launches"]),
+         "launches_by_path": {"rig": launches["front_end_single"] + launches["front_end_batched"],
+                              "rectify_cli": processes["rectify_launches"]}},
         # gray_work: 8 operations a pixel; 3 bytes in, 1 out. No TPU kernel:
         # the JAX package's gray is an XLA tensordot. Launches: the bm CLI's
         # two images (phase 10) and the middlebury command's bm and bm+
@@ -2199,7 +2619,11 @@ def main() -> int:
          "replaces": "gpu_stereo_matching_tpu/ops/color.py:33 (an XLA tensordot, no TPU kernel)",
          "device_ms": times_g["1080p_one_image"]["device_ms_per_image"],
          "launches_by_path": {"bm_cli": bm_launches["gray"], "middlebury": tiled_launches["gray"]}},
-        key_kernel,
+        # Kernel C on the sharded steps of one controller (phase 13) and of
+        # the ranks of phase 19 (two gloo ranks, one NCCL rank).
+        {**key_kernel, "launches": key_kernel["launches"] + processes["key_launches"],
+         "launches_by_path": {"sharded_single_controller": key_kernel["launches"],
+                              "multi_process": processes["key_launches"]}},
         # E1 and E2 run on bm+ (phase 10) and through the middlebury command's
         # bm and bm+ (phase 18).
         *({**entry, "launches": entry["launches"] + tiled_launches[name],
@@ -2225,4 +2649,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(rank_worker(sys.argv[2:]) if sys.argv[1:2] == ["--rank"] else main())

@@ -9,9 +9,15 @@ As ``gpu_stereo_matching_tpu/parallel/stereo.py``:
   WTA argmin is the elementwise minimum of the shards' packed keys
   (``key = SAD * D + d``, so ties still go to the smallest global d).
 
-One process drives the whole mesh (see ``parallel/mesh.py``): the step runs
-every coordinate's work on its device in turn and moves halo rows and keys
-between devices as tensor copies.
+On a mesh one process drives (``parallel/mesh.py``) the step runs every
+coordinate's work on its device in turn and moves halo rows and keys
+between devices as tensor copies. On a mesh that spans processes
+(``process_mesh``) every rank calls the step with the same arguments and
+runs its own coordinates: halo rows between ranks move point to point, and
+each ``(data, space)`` group reduces its keys with
+``all_reduce(MIN)`` over its ranks' subgroup, a group of one rank
+included, so one path serves every layout. The minimum of int32 keys is
+exact, so the bits do not depend on the transport.
 
 The zero halo rows at the global border are real rows of the slab, so an
 invalid column (``x < d``) is charged ``255 * (2r + 1)`` there, the fused
@@ -29,9 +35,10 @@ single-device pipeline do.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from gpu_stereo_matching_tpu_torch.core.config import BlockMatchingConfig
 from gpu_stereo_matching_tpu_torch.core.validation import check_gray_pair
@@ -39,6 +46,7 @@ from gpu_stereo_matching_tpu_torch.kernels.sad_wta import fused_block_matching_k
 from gpu_stereo_matching_tpu_torch.ops.aggregate import aggregate_cost_volume
 from gpu_stereo_matching_tpu_torch.ops.cost import ad_cost_volume_offset
 from gpu_stereo_matching_tpu_torch.ops.postprocess import lr_consistency_mask, median_filter_u8
+from gpu_stereo_matching_tpu_torch.parallel.collectives import all_reduce
 from gpu_stereo_matching_tpu_torch.parallel.halo import extend_with_row_halos
 from gpu_stereo_matching_tpu_torch.parallel.mesh import DeviceMesh
 
@@ -50,10 +58,14 @@ class ShardedBatch:
     """A (B, H, W) batch laid out on a mesh: ``pieces[i][j]`` lists the
     copies of frames block ``i`` (``data``), rows band ``j`` (``space``).
     An input holds one copy per device of the ``disp`` group; a step's
-    result holds one, on the group's first device."""
+    result holds one, on the group's first device. On a mesh that spans
+    processes a rank holds only its own coordinates' pieces (the others are
+    None), and a result holds one copy on each rank of the group, on the
+    rank's first device of it, as JAX replicates a step's output over
+    ``disp``."""
 
     mesh: DeviceMesh
-    pieces: List[List[List[torch.Tensor]]]
+    pieces: List[List[List[Optional[torch.Tensor]]]]
 
 
 def shard_batch(
@@ -61,7 +73,8 @@ def shard_batch(
 ) -> Tuple[ShardedBatch, ShardedBatch]:
     """Place a (B, H, W) uint8 stereo batch with the steps' input layout:
     frames split over ``data``, rows over ``space``, each piece copied to
-    every device of its ``disp`` group."""
+    every device of its ``disp`` group. On a mesh that spans processes each
+    rank gives the whole batch and places only its own pieces."""
     check_gray_pair(left, right, 1, "shard_batch")
     if left.dim() != 3:
         raise ValueError(f"shard_batch: expected (B, H, W), got {tuple(left.shape)}")
@@ -75,7 +88,8 @@ def shard_batch(
     def place(x):
         return ShardedBatch(mesh, [
             [
-                [band.to(mesh.devices[i, j, k]) for k in range(n_disp)]
+                [band.to(mesh.devices[i, j, k]) if mesh.is_local(i, j, k) else None
+                 for k in range(n_disp)]
                 for j, band in enumerate(block.chunk(n_space, dim=1))
             ]
             for i, block in enumerate(x.chunk(n_data, dim=0))
@@ -84,9 +98,39 @@ def shard_batch(
     return place(left), place(right)
 
 
-def unshard(batch: ShardedBatch, device: str | torch.device | None = None) -> torch.Tensor:
+def own_pieces(batch: ShardedBatch) -> Dict[Tuple[int, int], torch.Tensor]:
+    """This process's pieces of a sharded batch: ``(i, j)`` -> its first
+    copy of frames block ``i``, rows band ``j``."""
+    out = {}
+    for i, block in enumerate(batch.pieces):
+        for j, band in enumerate(block):
+            piece = next((p for p in band if p is not None), None)
+            if piece is not None:
+                out[(i, j)] = piece
+    return out
+
+
+def unshard(
+    batch: ShardedBatch, device: str | torch.device | None = None
+) -> Optional[torch.Tensor]:
     """Gather a sharded batch into one (B, H, W) tensor on ``device``
-    (default: the device of the first piece)."""
+    (default: the device of the first piece).
+
+    On a mesh that spans processes every rank calls this; the pieces go to
+    rank 0 through the host (``dist.gather_object``), which returns the
+    batch (on ``device``, default the host) while the other ranks return
+    None. :func:`own_pieces` gives a rank its own pieces without moving any.
+    """
+    if batch.mesh.ranks is not None:
+        everyone = [None] * dist.get_world_size() if dist.get_rank() == 0 else None
+        dist.gather_object({ij: p.cpu() for ij, p in own_pieces(batch).items()}, everyone)
+        if everyone is None:
+            return None
+        pieces = {ij: p for part in everyone for ij, p in part.items()}
+        n_data, n_space, _ = batch.mesh.devices.shape
+        out = torch.cat([torch.cat([pieces[(i, j)] for j in range(n_space)], dim=1)
+                         for i in range(n_data)], dim=0)
+        return out if device is None else out.to(device)
     dev = batch.pieces[0][0][0].device if device is None else torch.device(device)
     return torch.cat(
         [torch.cat([band[0].to(dev) for band in block], dim=1) for block in batch.pieces],
@@ -109,31 +153,35 @@ def _run_sharded(
 ) -> ShardedBatch:
     """The frame of both steps. For every ``(data, space)`` group: halo
     rows, then ``local_keys(slab_l, slab_r, k)`` -> a tuple of key tensors
-    on each ``disp`` device ``k``, their elementwise minimum over ``disp``
-    on the group's first device, and ``finish(keys, j)`` -> the band."""
+    on each ``disp`` device ``k`` this process drives, their elementwise
+    minimum on the first of them, on a mesh that spans processes that
+    minimum's ``all_reduce(MIN)`` over the group's ranks, and
+    ``finish(keys, j)`` -> the band, on the first of those devices."""
     mesh = left.mesh
     n_data, n_space, n_disp = mesh.devices.shape
     out = []
     for i in range(n_data):
         # slabs[k][j]: band j with its halo rows, on device (i, j, k).
-        slabs = [
-            (
-                extend_with_row_halos([left.pieces[i][j][k] for j in range(n_space)], halo),
-                extend_with_row_halos([right.pieces[i][j][k] for j in range(n_space)], halo),
-            )
-            for k in range(n_disp)
-        ]
+        slabs = []
+        for k in range(n_disp):
+            owners = None if mesh.ranks is None else [int(r) for r in mesh.ranks[i, :, k]]
+            slabs.append(tuple(
+                extend_with_row_halos([x.pieces[i][j][k] for j in range(n_space)], halo, owners)
+                for x in (left, right)))
         bands = []
         for j in range(n_space):
-            first = mesh.devices[i, j, 0]
+            mine = [k for k in range(n_disp) if mesh.is_local(i, j, k)]
             keys = None
-            for k in range(n_disp):
+            for k in mine:
                 part = local_keys(slabs[k][0][j], slabs[k][1][j], k)
-                part = tuple(p.to(first) for p in part)
+                part = tuple(p.to(mesh.devices[i, j, mine[0]]) for p in part)
                 keys = part if keys is None else tuple(
                     torch.minimum(a, b) for a, b in zip(keys, part)
                 )
-            bands.append([finish(keys, j)])
+            if mine and mesh.ranks is not None:
+                group = mesh.disp_groups[(i, j)]
+                keys = tuple(all_reduce(key, dist.ReduceOp.MIN, group) for key in keys)
+            bands.append([finish(keys, j) if mine else None])
         out.append(bands)
     return ShardedBatch(mesh, out)
 

@@ -131,3 +131,109 @@ def test_st_defaults_and_refuses_st2(tmp_path, bgr_pair_files, capsys):
         main(["st", lp, rp, str(tmp_path / "e.png"), "--method", "st3", "--device", "cpu"])
     assert "invalid choice" in capsys.readouterr().err
     assert not (tmp_path / "e.png").exists()
+
+
+def _jax_cli(argv):
+    """The JAX package's command, without its compile-cache setup."""
+    from gpu_stereo_matching_tpu.cli import main as jcli
+
+    args = jcli.build_parser().parse_args(argv)
+    return args.fn(args)
+
+
+@pytest.fixture
+def rig_files(tmp_path):
+    """A calibration YAML of a 90x160 rig (the hostcopies test's 720p rig
+    scaled down) and a BGR pair of that size."""
+    from gpu_stereo_matching_tpu_torch.io import calib_yaml
+
+    c, s = np.cos(0.004), np.sin(0.004)
+    scale = 160 / 1280
+    k1 = np.array([[1002.5, 0, 641.3], [0, 1001.8, 358.9], [0, 0, 1.0]])
+    k2 = np.array([[998.7, 0, 636.2], [0, 998.1, 362.4], [0, 0, 1.0]])
+    k1[:2] *= scale
+    k2[:2] *= scale
+    calib = calib_yaml.StereoCalibration(
+        left_intrinsics=k1, right_intrinsics=k2,
+        left_distortion=np.array([-0.081, 0.024, 4e-4, -3e-4, 0.0]),
+        right_distortion=np.array([-0.077, 0.019, -2e-4, 5e-4, 0.0]),
+        rotation=np.array([[c, 0, s], [0, 1.0, 0], [-s, 0, c]]),
+        translation=np.array([-60.2, 0.35, -0.8]),
+    )
+    calib_yaml.save_opencv_stereo_yaml(tmp_path / "calib.yml", calib)
+    rng = np.random.default_rng(12)
+    for name in ("l", "r"):
+        Image.fromarray(rng.integers(0, 256, (90, 160, 3), dtype=np.uint8)).save(
+            tmp_path / f"{name}.png")
+    return [str(tmp_path / n) for n in ("calib.yml", "l.png", "r.png")]
+
+
+@pytest.mark.parametrize("extra", [[], ["--size", "80x45"], ["--size", "80x45",
+                                                              "--keep-intrinsics"]])
+def test_rectify_equals_the_jax_command(tmp_path, rig_files, capsys, extra):
+    """The PNGs of ``rectify --device cpu`` (the front end's plain twin)
+    equal the JAX command's (gray, then the remap) bit for bit."""
+    calib, lp, rp = rig_files
+    args = ["rectify", "--calib", calib, "--left", lp, "--right", rp, *extra]
+    assert main(args + ["--out-prefix", str(tmp_path / "ours"), "--device", "cpu"]) == 0
+    assert _jax_cli(args + ["--out-prefix", str(tmp_path / "theirs")]) == 0
+    hw = (45, 80) if extra else (90, 160)
+    for view in ("left", "right"):
+        ours = np.asarray(Image.open(tmp_path / f"ours_{view}.png"))
+        theirs = np.asarray(Image.open(tmp_path / f"theirs_{view}.png"))
+        assert ours.shape == hw and ours.dtype == np.uint8
+        np.testing.assert_array_equal(ours, theirs)
+        assert ours.any()
+    out = capsys.readouterr().out
+    assert out.count(f"_left.png / _right.png ({hw[1]}x{hw[0]})") == 2
+
+
+def test_rectify_defaults_to_the_card(tmp_path, rig_files):
+    from gpu_stereo_matching_tpu_torch.cli.main import build_parser
+
+    calib, lp, rp = rig_files
+    argv = ["rectify", "--calib", calib, "--left", lp, "--right", rp, "--out-prefix",
+            str(tmp_path / "o")]
+    assert build_parser().parse_args(argv).device == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main(argv)
+        assert not (tmp_path / "o_left.png").exists()
+
+
+def test_calibrate_writes_the_jax_commands_yaml(tmp_path, capsys):
+    """On rendered boards (the JAX CLI test's views, smaller), the YAML
+    equals the JAX command's byte for byte, and so do the printed lines."""
+    from tests.test_chessboard import render_board
+
+    rng = np.random.default_rng(13)
+    views = [
+        np.array([[1.0, 0.03, 24.0], [0.02, 1.0, 20.0], [0, 0, 1.0]]),
+        np.array([[0.96, -0.02, 36.0], [0.03, 1.02, 24.0], [1e-4, 0, 1.0]]),
+        np.array([[1.05, 0.01, 18.0], [-0.02, 0.97, 32.0], [0, 1e-4, 1.0]]),
+        np.array([[0.99, 0.05, 30.0], [0.01, 1.04, 16.0], [-1e-4, 1e-4, 1.0]]),
+    ]
+    shift = np.array([[1.0, 0, -5.0], [0, 1.0, 0], [0, 0, 1.0]])
+    for i, h_mat in enumerate(views):
+        for side, h in (("Left", h_mat), ("Right", shift @ h_mat)):
+            img, _ = render_board(6, 6, square=20, h_mat=h, size=(210, 240), noise=1.0, rng=rng)
+            Image.fromarray(img).save(tmp_path / f"{side}_{i}.png")
+    globs = [str(tmp_path / "Left_*.png"), str(tmp_path / "Right_*.png")]
+    flags = ["--cols", "6", "--rows", "6", "--square-size", "20"]
+    assert main(["calibrate", *globs, str(tmp_path / "ours.yml"), *flags]) == 0
+    ours_out = capsys.readouterr().out
+    assert _jax_cli(["calibrate", *globs, str(tmp_path / "theirs.yml"), *flags]) == 0
+    theirs_out = capsys.readouterr().out
+    assert "wrote" in ours_out and "(4 pairs)" in ours_out
+    assert ours_out.replace("ours.yml", "theirs.yml") == theirs_out
+    assert (tmp_path / "ours.yml").read_bytes() == (tmp_path / "theirs.yml").read_bytes()
+
+
+def test_calibrate_unpaired_captures(tmp_path, capsys):
+    (tmp_path / "Left_0.png").touch()
+    rc = main(["calibrate", str(tmp_path / "Left_*.png"), str(tmp_path / "Right_*.png"),
+               str(tmp_path / "o.yml")])
+    assert rc == 2 and "unpaired captures: 1 left vs 0 right" in capsys.readouterr().out
+    assert main(["calibrate", str(tmp_path / "none_*.png"), str(tmp_path / "none_*.png"),
+                 str(tmp_path / "o.yml")]) == 2
+    assert not (tmp_path / "o.yml").exists()

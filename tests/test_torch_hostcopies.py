@@ -1,10 +1,12 @@
 """The port's own copies of the plain-numpy host modules (configuration,
 calibration YAML, image I/O, disparity colouring, rectification maps, the
-Middlebury scenes and metrics) give
+Middlebury scenes and metrics, the Zhang toolkit, chessboard detection and
+capture I/O) give
 what the JAX package's modules give on the same inputs, so the copies
 cannot drift unseen. Only the tests import both packages."""
 
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -207,3 +209,48 @@ def test_middlebury_scenes_load_alike(tmp_path):
             assert (a is None) == (b is None) == (name == "Computer" and field.startswith("gt"))
             if a is not None:
                 np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("rel", ["calib/zhang.py", "calib/chessboard.py", "io/capture.py"])
+def test_copied_modules_differ_only_in_imports_and_a_note(rel):
+    """The copy is the JAX module line for line, its imports re-pointed at
+    the port's copies and a note added to its docstring."""
+    root = Path(__file__).resolve().parents[1]
+    theirs = (root / "gpu_stereo_matching_tpu" / rel).read_text().splitlines()
+    ours = (root / "gpu_stereo_matching_tpu_torch" / rel).read_text().splitlines()
+    note = ["", f"The port's own copy of the JAX package's ``{rel}`` (plain numpy, the same",
+            "arithmetic op for op); ``tests/test_torch_hostcopies.py`` holds the two", "together."]
+    end = theirs.index('"""', 1)
+    assert ours == [line.replace("from gpu_stereo_matching_tpu.", "from gpu_stereo_matching_tpu_torch.")
+                    for line in theirs[:end] + note + theirs[end:]]
+    assert any("gpu_stereo_matching_tpu_torch." in line for line in ours)
+
+
+def test_capture_sources_agree(tmp_path):
+    """Pairs by index from a directory, frames from a list, pairs written
+    to disk, and a camera source that cannot open its cameras."""
+    from gpu_stereo_matching_tpu.io import capture as jcap
+    from gpu_stereo_matching_tpu_torch.io import capture as tcap
+
+    rng = np.random.default_rng(7)
+    src = tmp_path / "src"
+    src.mkdir()
+    for name in ("Left_0", "Right_0", "Left_2", "Right_2", "Left_3", "Right_10", "Left_x"):
+        timages.save_image(src / f"{name}.png", rng.integers(0, 256, (6, 9, 3), dtype=np.uint8))
+    ours, theirs = tcap.DirectorySource(str(src)), jcap.DirectorySource(str(src))
+    assert ours.pairs == theirs.pairs and [Path(p).name for p, _ in ours.pairs] == [
+        "Left_0.png", "Left_2.png"]
+    listed = [(str(src / "Left_0.png"), str(src / "Right_2.png"))]
+    for a, b in zip(list(tcap.PairListSource(listed).frames()) + list(ours.frames()),
+                    list(jcap.PairListSource(listed).frames()) + list(theirs.frames())):
+        np.testing.assert_array_equal(a[0], b[0])
+        np.testing.assert_array_equal(a[1], b[1])
+    written = tcap.capture_pairs(ours, str(tmp_path / "a"), max_pairs=1)
+    assert [tuple(Path(p).name for p in pair) for pair in written] == [("Left_0.jpg", "Right_0.jpg")]
+    jcap.capture_pairs(theirs, str(tmp_path / "b"), max_pairs=1)
+    for name in ("Left_0.jpg", "Right_0.jpg"):
+        assert (tmp_path / "a" / name).read_bytes() == (tmp_path / "b" / name).read_bytes()
+    assert tcap.capture_pairs(tcap.PairListSource([]), str(tmp_path / "c")) == []
+    for module in (tcap, jcap):
+        with pytest.raises(RuntimeError, match="camera"):
+            next(module.CameraSource(90, 91, num_frames=1).frames())

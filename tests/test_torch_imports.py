@@ -17,6 +17,9 @@ PORT_MODULES = [
     "gpu_stereo_matching_tpu_torch.io.visualize",
     "gpu_stereo_matching_tpu_torch.io.middlebury",
     "gpu_stereo_matching_tpu_torch.calib.rectify",
+    "gpu_stereo_matching_tpu_torch.calib.zhang",
+    "gpu_stereo_matching_tpu_torch.calib.chessboard",
+    "gpu_stereo_matching_tpu_torch.io.capture",
     "gpu_stereo_matching_tpu_torch.ops.color",
     "gpu_stereo_matching_tpu_torch.ops.remap",
     "gpu_stereo_matching_tpu_torch.ops.cost",
@@ -45,6 +48,7 @@ PORT_MODULES = [
     "gpu_stereo_matching_tpu_torch.cli.main",
     "gpu_stereo_matching_tpu_torch.parallel.mesh",
     "gpu_stereo_matching_tpu_torch.parallel.halo",
+    "gpu_stereo_matching_tpu_torch.parallel.collectives",
     "gpu_stereo_matching_tpu_torch.parallel.stereo",
     "gpu_stereo_matching_tpu_torch.parallel.launch",
     "gpu_stereo_matching_tpu_torch.parallel.segment_tree",

@@ -301,6 +301,9 @@ def test_launch_main_on_cpu(capsys):
     lines = [json.loads(s) for s in capsys.readouterr().out.splitlines()]
     assert [line["mesh"]["data"] for line in lines] == [1, 2]
     assert all(line["device"] == "cpu" for line in lines)
+    # A virtual mesh says so: 4 and 8 coordinates on one device, one process.
+    assert [(line["devices"], line["distinct_devices"], line["processes"]) for line in lines] == [
+        (4, 1, 1), (8, 1, 1)]
     for flag in ("--coordinator", "--num-processes", "--process-id"):
         with pytest.raises(SystemExit):
             launch.main([flag, "1"])
