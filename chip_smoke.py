@@ -190,13 +190,35 @@ Phases, each printing its own line:
    kernel) and on the CPU, PNGs equal, then ``bm --gray`` on the rectified
    pair, the card's PNG equal to the CPU's. To run it alone:
    ``run_process_phase(torch.device("cuda:0"), time.perf_counter())`` after
-   ``_build.build()``; (c) alone: ``run_multi_card()``.
+   ``_build.build()``; (c) alone: ``run_multi_card()``;
+20. the benches (``gpu_stereo_matching_tpu_torch/bench/``), each through
+   its entry point on the card, with every counter at 0 just before and its
+   exact launches just after (``bench_launches``), each JSON line it prints
+   echoed under the phase and required to carry the card's name and power
+   limit: the headline (B=32, 1080x1920, D=64, r=5; A2), ``micro`` at
+   1080p (G, B's u8 entry, A1, E1, E2, D; the histogram median in plain
+   torch), ``streaming`` on the synthetic calibration at 720x1280 (the
+   front end and A2 once a batch), ``st_profile``, ``st_streaming``,
+   ``st2_streaming``, ``st_hd`` and ``st_config3`` on a ``Synth`` scene of
+   Art's own size, 370x463 (D once a frame or band, three times an ST-2
+   frame), the roofline measured live (A through the headline at 1080p and
+   4K, the front end, the filter on the scene's plan) and the scaling
+   prediction (the headline's ms a frame as its compute). After each bench,
+   the first launch of every kernel at each signature (shapes, types and
+   other arguments) is held bit for bit against the kernel's plain twin on
+   that launch's own inputs (``TwinRecorder``), so every shape the benches
+   give a kernel is checked. The ST streaming benches' frames, cut for time
+   to ``ST_STREAM_FRAMES``, are printed with their default in their bench's
+   line. To run it alone: ``run_bench_phase(torch.device("cuda:0"), time.perf_counter())``
+   after ``_build.build()``, ``_build.load_library()`` and
+   ``tree.builder._compile_library()``.
 
-Each kernel's entry of the summary line carries its bound: the least time
-the card could take, the larger of its bytes (each input read once, each
-output written once) over 3.35 TB/s and its operations over 67e12 32-bit
-operations per second (the float32 rate outside the tensor cores; the data
-sheet gives no separate integer rate). Operations are counted from the
+Each kernel's entry of the summary line carries its bound
+(``bench/roofline.py``): the least time the card could take, the larger of
+its bytes (each input read once, each output written once) over 3.35 TB/s
+and its operations over 67e12 32-bit operations per second (the float32
+rate outside the tensor cores; the data sheet gives no separate integer
+rate). Operations are counted from the
 separable running-sum form: per pixel and disparity 2 for the absolute
 difference, 2 for the vertical and 2 for the horizontal running sum, plus
 2 for the (min, argmin) update or 3 for the packed key and its minimum.
@@ -209,6 +231,7 @@ Then one JSON line with the kernels' summary, and last
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import statistics
@@ -221,8 +244,19 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from gpu_stereo_matching_tpu_torch.bench.fused_kernel import cuda_ms, wall_ms
+from gpu_stereo_matching_tpu_torch.bench.roofline import (
+    bound,
+    fused_sad_work,
+    gray_work,
+    remap_work,
+)
+from gpu_stereo_matching_tpu_torch.bench.streaming import synthetic_calibration
+
 SEED = 0
 TIME_REPS = 7
+# Host milliseconds ended by a synchronize, the median of the calls.
+median_wall_ms = functools.partial(wall_ms, pick=statistics.median)
 EDGE_CASES = [  # (B, H, W, D, r): ragged tiles, odd D, r = 0, D = W, r = 6
     (1, 21, 33, 8, 2), (1, 13, 17, 4, 1), (1, 9, 130, 4, 1), (2, 40, 64, 16, 3),
     (1, 16, 257, 12, 4), (1, 24, 40, 7, 2), (1, 24, 40, 8, 6), (1, 30, 120, 63, 5),
@@ -259,39 +293,6 @@ REMAP_CASES = [
     (23, 31, 13, 37, 3, 1, True), (20, 33, 16, 24, 3, 3, True), (9, 10, 8, 8, 1, 0, True),
     (24, 32, 24, 32, 3, 2, False), (70, 45, 61, 67, 2, 0, True), (33, 257, 35, 129, 3, 1, True),
 ]
-PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, data sheet
-PEAK_OPS_PER_S = 67e12      # 32-bit operations outside the tensor cores, data sheet
-
-
-def bound(operations: float, nbytes: float) -> dict:
-    """The least time the card could take: the larger of operations over
-    the peak rate and bytes over the memory rate, and which of them it is."""
-    t_ops = operations / PEAK_OPS_PER_S * 1e3
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    return {"bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
-
-
-def remap_work(frames: int, n: int, views: int, bgr: bool) -> tuple:
-    """(operations, bytes) of one launch of the remap kernel over ``views``
-    views of ``frames`` frames of ``n`` output pixels. Per output pixel once
-    a launch: the maps (8 bytes), two floors, four subtractions and four
-    compares (10 operations). Per pixel and frame: 1 (gray) or 3 (BGR) bytes
-    in and 1 out; the interpolation's 6 multiplies, 3 adds, the rounding and
-    2 clamps (12); from BGR, each of the 4 taps turned into gray first, a
-    multiply, two fused multiply-adds, the rounding and 2 clamps (8)."""
-    per_frame = 12 + (4 * 8 if bgr else 0)
-    return (views * (10 * n + frames * n * per_frame),
-            views * (8 * n + frames * n * ((3 if bgr else 1) + 1)))
-
-
-def gray_work(pixels: int) -> tuple:
-    """(operations, bytes) of the gray kernel: per pixel a multiply, two
-    fused multiply-adds, the rounding and 2 clamps (8 operations); 3 bytes in,
-    1 out."""
-    return 8 * pixels, 4 * pixels
-
-
 def device_ms_per_call(fn, repeats: int = 10):
     """Device time per call of ``fn()`` under ``torch.profiler`` (all the
     kernels it launches), with the kernels the profiler saw a call."""
@@ -308,45 +309,6 @@ def ratio(x, k):
 
 def log(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
-
-
-def synthetic_calibration():
-    """A 720p stereo pair: ~1000 px focal length, mild distortion, a 60 mm
-    baseline and a slight relative rotation."""
-    from gpu_stereo_matching_tpu_torch import StereoCalibration
-
-    def rodrigues(v):
-        v = np.asarray(v, np.float64)
-        t = np.linalg.norm(v)
-        k = v / t
-        kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
-        return np.eye(3) + np.sin(t) * kx + (1 - np.cos(t)) * kx @ kx
-
-    return StereoCalibration(
-        left_intrinsics=np.array([[1002.5, 0, 641.3], [0, 1001.8, 358.9], [0, 0, 1.0]]),
-        right_intrinsics=np.array([[998.7, 0, 636.2], [0, 998.1, 362.4], [0, 0, 1.0]]),
-        left_distortion=np.array([-0.081, 0.024, 4e-4, -3e-4, 0.0]),
-        right_distortion=np.array([-0.077, 0.019, -2e-4, 5e-4, 0.0]),
-        rotation=rodrigues([0.0021, -0.0043, 0.0012]),
-        translation=np.array([-60.2, 0.35, -0.8]),
-    )
-
-
-def cuda_ms(fn, reps: int = TIME_REPS) -> float:
-    """Median milliseconds of ``fn()`` between CUDA events, after 2 warm-ups."""
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def shifted_pair(rng, dev, shape, shift: int):
@@ -693,7 +655,7 @@ def run_bm_plus_phases(dev, u8, calib) -> list:
     # 11. Timings at 1080p.
     l1, r1 = pairs[0]
     vol = split_phase.sad_volume(l1, r1, 64, 5)
-    t_e1 = cuda_ms(lambda: split_phase.sad_volume(l1, r1, 64, 5))
+    t_e1 = cuda_ms(lambda: split_phase.sad_volume(l1, r1, 64, 5), TIME_REPS)
     p_e1 = cuda_ms(lambda: split_phase.sad_volume_reference(l1, r1, 64, 5), reps=3)
     ring = [(u8((1080, 1920)), u8((1080, 1920))) for _ in range(8)]
 
@@ -701,15 +663,16 @@ def run_bm_plus_phases(dev, u8, calib) -> list:
         for left, right in ring:
             split_phase.sad_volume(left, right, 64, 5)
 
-    t_e1_ring = cuda_ms(volumes_of_ring) / len(ring)
+    t_e1_ring = cuda_ms(volumes_of_ring, TIME_REPS) / len(ring)
     del ring
     # What the card takes to write the volume's bytes at all: a plain fill.
     scratch = torch.empty_like(vol)
-    t_fill = cuda_ms(lambda: scratch.fill_(1))
+    t_fill = cuda_ms(lambda: scratch.fill_(1), TIME_REPS)
     del scratch
-    t_e2 = cuda_ms(lambda: split_phase.wta_from_sad(vol))
-    p_e2 = cuda_ms(lambda: wta_disparity(vol))
-    lib_e2 = cuda_ms(lambda: torch.argmin(vol, dim=0))  # the yardstick, used nowhere in the port
+    t_e2 = cuda_ms(lambda: split_phase.wta_from_sad(vol), TIME_REPS)
+    p_e2 = cuda_ms(lambda: wta_disparity(vol), TIME_REPS)
+    # The yardstick, used nowhere in the port.
+    lib_e2 = cuda_ms(lambda: torch.argmin(vol, dim=0), TIME_REPS)
     img = u8((1080, 1920))
     p_d = {r: cuda_ms(lambda: median_filter_u8(img, r, "histogram"), reps=3) for r in (3, 7)}
     log("11-time", kernel="sad_volume", shape=[1080, 1920, 64, 5], ms=t_e1, plain_ms=p_e1,
@@ -717,7 +680,7 @@ def run_bm_plus_phases(dev, u8, calib) -> list:
         plan=split_phase.volume_launch_plan((1080, 1920), 64, 5, dev),
         general_body_plan_at_r_8=split_phase.volume_launch_plan((1080, 1920), 64, 8, dev))
     log("11-time", kernel="wta_from_sad", shape=[1080, 1920, 64, 5], ms=t_e2, plain_ms=p_e2)
-    t_bm = cuda_ms(lambda: block_matching_pipeline(l1, r1, cfg))
+    t_bm = cuda_ms(lambda: block_matching_pipeline(l1, r1, cfg), TIME_REPS)
     p_bm = cuda_ms(lambda: block_matching_reference(l1, r1, cfg), reps=3)
     log("11-time", path="bm+", shape=[1080, 1920, 64, 5], median_radius=3, ms_per_frame=t_bm,
         fps=1e3 / t_bm, plain_ms_per_frame=p_bm, plain_fps=1e3 / p_bm)
@@ -728,10 +691,12 @@ def run_bm_plus_phases(dev, u8, calib) -> list:
     masked = torch.where(lr_consistency_mask(disp, disp_r, 1), disp, 0)
     stages = {
         "sad_volume": t_e1,
-        "right_view_gather": cuda_ms(lambda: _right_view_sad(vol)),
+        "right_view_gather": cuda_ms(lambda: _right_view_sad(vol), TIME_REPS),
         "wta_from_sad_x2": 2 * t_e2,
-        "lr_mask": cuda_ms(lambda: torch.where(lr_consistency_mask(disp, disp_r, 1), disp, 0)),
-        "median_r3": cuda_ms(lambda: ctmf_median.ctmf_median_u8(masked.to(torch.uint8), 3)),
+        "lr_mask": cuda_ms(lambda: torch.where(lr_consistency_mask(disp, disp_r, 1), disp, 0),
+                           TIME_REPS),
+        "median_r3": cuda_ms(lambda: ctmf_median.ctmf_median_u8(masked.to(torch.uint8), 3),
+                             TIME_REPS),
     }
     log("11-time", path="bm+ by stage", shape=[1080, 1920, 64, 5], stages_ms=stages,
         sum_ms=sum(stages.values()), frame_ms=t_bm)
@@ -763,8 +728,8 @@ def run_bm_plus_phases(dev, u8, calib) -> list:
                     return [ctmf_median.ctmf_median_u8(x, r) for x in ring]
 
                 ms[kind] = {
-                    "one_image": cuda_ms(lambda: ctmf_median.ctmf_median_u8(ring[0], r)),
-                    "per_image_over_a_ring_of_8": cuda_ms(run_ring) / len(ring),
+                    "one_image": cuda_ms(lambda: ctmf_median.ctmf_median_u8(ring[0], r), TIME_REPS),
+                    "per_image_over_a_ring_of_8": cuda_ms(run_ring, TIME_REPS) / len(ring),
                     # A launch can take less than its enqueue: the device's own time.
                     "device_per_image": device_ms(run_ring, 5)}
             plan = ctmf_median.median_launch_plan(hw, r, dev)
@@ -957,19 +922,19 @@ def run_sharded_phases(dev, u8, t_fused_b1: float) -> dict:
         note="virtual mesh on one card: what sharding costs there, not what it gains", ok=True)
 
     l1, r1 = left8[:1], right8[:1]
-    t_c = cuda_ms(lambda: key(l1, r1, 0, 64, 64, 5))
-    t_a = cuda_ms(lambda: sad_wta.fused_block_matching_batched(l1, r1, 64, 5))
+    t_c = cuda_ms(lambda: key(l1, r1, 0, 64, 64, 5), TIME_REPS)
+    t_a = cuda_ms(lambda: sad_wta.fused_block_matching_batched(l1, r1, 64, 5), TIME_REPS)
     p_c = cuda_ms(lambda: key_twin(l1, r1, 0, 64, 64, 5), reps=3)
-    t_c16 = cuda_ms(lambda: key(l1, r1, 16, 16, 64, 5))
+    t_c16 = cuda_ms(lambda: key(l1, r1, 16, 16, 64, 5), TIME_REPS)
     p_c16 = cuda_ms(lambda: key_twin(l1, r1, 16, 16, 64, 5), reps=3)
     log("15-time", kernel="sad_wta_key", shape=[1, *hw, 5], range=[0, 64, 64], ms=t_c,
         plain_ms=p_c, fused_kernel_ms=t_a, fused_kernel_ms_phase_7=t_fused_b1,
         plan=sad_wta.key_launch_plan((1, *hw), 64, 64, 5, dev))
     log("15-time", kernel="sad_wta_key", shape=[1, *hw, 5], range=[16, 16, 64], ms=t_c16,
         plain_ms=p_c16, plan=sad_wta.key_launch_plan((1, *hw), 16, 64, 5, dev))
-    t_a8 = cuda_ms(lambda: sad_wta.fused_block_matching_batched(left8, right8, 64, 5))
-    t_c8 = cuda_ms(lambda: key(left8, right8, 0, 64, 64, 5))
-    t_c8_16 = cuda_ms(lambda: key(left8, right8, 16, 16, 64, 5))
+    t_a8 = cuda_ms(lambda: sad_wta.fused_block_matching_batched(left8, right8, 64, 5), TIME_REPS)
+    t_c8 = cuda_ms(lambda: key(left8, right8, 0, 64, 64, 5), TIME_REPS)
+    t_c8_16 = cuda_ms(lambda: key(left8, right8, 16, 16, 64, 5), TIME_REPS)
     log("15-time", kernel="sad_wta_key", shape=[8, *hw, 5],
         ms_per_frame={"[0, 64, 64]": t_c8 / 8, "[16, 16, 64]": t_c8_16 / 8},
         fused_kernel_ms_per_frame=t_a8 / 8)
@@ -982,7 +947,7 @@ def run_sharded_phases(dev, u8, t_fused_b1: float) -> dict:
             "slab": list(slab), "count": num_d // n_disp,
             **sad_wta.key_launch_plan(slab, num_d // n_disp, num_d, radius, dev)}
     log("15-time", kernel="sad_wta_key", launch_plans_of_the_sharded_steps=slab_plans)
-    per_frame = {str(shape): cuda_ms(lambda: step(sl, sr)) / 8
+    per_frame = {str(shape): cuda_ms(lambda: step(sl, sr), TIME_REPS) / 8
                  for shape, (step, sl, sr) in steps.items()}
     log("15-time", path="sharded step, virtual mesh on one card", shape=[8, *hw, num_d, radius],
         ms_per_frame=per_frame, fused_kernel_ms_per_frame=t_a8 / 8,
@@ -1027,10 +992,11 @@ def run_sharded_phases(dev, u8, t_fused_b1: float) -> dict:
 
         reduced = minimum()
         parts_ms = {
-            "halo_slabs": cuda_ms(halos),
-            "key_kernel_launches": cuda_ms(kernels),
-            "crop_and_minimum_over_disp": cuda_ms(minimum),
-            "mod_and_cast": cuda_ms(lambda: [(k % num_d).to(torch.int32) for k in reduced]),
+            "halo_slabs": cuda_ms(halos, TIME_REPS),
+            "key_kernel_launches": cuda_ms(kernels, TIME_REPS),
+            "crop_and_minimum_over_disp": cuda_ms(minimum, TIME_REPS),
+            "mod_and_cast": cuda_ms(lambda: [(k % num_d).to(torch.int32) for k in reduced],
+                                    TIME_REPS),
         }
         log("15-time", path="sharded step by part", mesh=list(shape), batch=8,
             parts_ms=parts_ms, sum_ms=sum(parts_ms.values()), step_ms=per_frame[str(shape)] * 8)
@@ -1125,20 +1091,6 @@ def st_part(name: str) -> str:
     if "rank_select_kernel" in name or "histogram_kernel" in name:
         return "median_kernel_D"
     return "torch_ops"
-
-
-def wall_ms(fn, reps: int) -> float:
-    """Median host milliseconds of ``fn()`` ended by a synchronize, after one
-    warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
 
 
 def run_st1_phase(dev, started: float) -> dict:
@@ -1252,11 +1204,11 @@ def run_st1_phase(dev, started: float) -> dict:
                                   penalty=cfg.penalty_cross_seg)
         plan = build_stride_plan(tree, cfg.sigma)
         host = {
-            "edge_weights": wall_ms(lambda: color_edge_weights(left), reps),
-            "tree_build": wall_ms(lambda: build_segment_tree(
+            "edge_weights": median_wall_ms(lambda: color_edge_weights(left), reps, dev),
+            "tree_build": median_wall_ms(lambda: build_segment_tree(
                 weights, *hw, tau=cfg.tau, min_size=cfg.min_size_seg,
-                penalty=cfg.penalty_cross_seg), reps),
-            "plan_emit": wall_ms(lambda: build_stride_plan(tree, cfg.sigma), reps),
+                penalty=cfg.penalty_cross_seg), reps, dev),
+            "plan_emit": median_wall_ms(lambda: build_stride_plan(tree, cfg.sigma), reps, dev),
         }
         upload = cuda_ms(lambda: plan.to(dev), reps)
         plan_dev = plan.to(dev)
@@ -1272,7 +1224,7 @@ def run_st1_phase(dev, started: float) -> dict:
             "wta": cuda_ms(lambda: wta_disparity(filtered, dim=1), reps),
             "median_D": cuda_ms(lambda: ctmf_median.median_u8(disp, cfg.median_radius), reps),
         }
-        whole = wall_ms(lambda: st.st1_disparity(left, right, cfg), reps)
+        whole = median_wall_ms(lambda: st.st1_disparity(left, right, cfg), reps, dev)
         filter_prof = device_profile(lambda: tree_filter_nodes_sb(nodes, plan_dev), 2,
                                      lambda name: "filter")
         frame_prof = device_profile(lambda: st.st1_disparity(left, right, cfg), 2, st_part)
@@ -1502,19 +1454,19 @@ def run_st2_phase(dev, started: float) -> dict:
         t_f = build_segment_tree(w_f, *hw, **tree_args, weight_scale=255.0)
         plan2_dev = converged_stride_batch([t_f], cfg.sigma).to(dev)
         host = {
-            "sigma1_weights_both_views": wall_ms(lambda: (color_edge_weights(left),
-                                                          color_edge_weights(right)), reps),
-            "sigma1_trees_both_views": wall_ms(lambda: (build_segment_tree(w_l, *hw, **tree_args),
-                                                        build_segment_tree(w_r, *hw, **tree_args)),
-                                               reps),
-            "sigma1_plans_both_views": wall_ms(lambda: (build_stride_plan(t_l, cfg.sigma_one),
-                                                        build_stride_plan(t_r, cfg.sigma_one)),
-                                               reps),
-            "final_weights": wall_ms(lambda: color_depth_edge_weights(
-                left, disp_l[0], mask[0], num_d, cfg.alpha_dep_seg), reps),
-            "final_tree": wall_ms(lambda: build_segment_tree(w_f, *hw, **tree_args,
-                                                             weight_scale=255.0), reps),
-            "final_plan": wall_ms(lambda: build_stride_plan(t_f, cfg.sigma), reps),
+            "sigma1_weights_both_views": median_wall_ms(
+                lambda: (color_edge_weights(left), color_edge_weights(right)), reps, dev),
+            "sigma1_trees_both_views": median_wall_ms(
+                lambda: (build_segment_tree(w_l, *hw, **tree_args),
+                         build_segment_tree(w_r, *hw, **tree_args)), reps, dev),
+            "sigma1_plans_both_views": median_wall_ms(
+                lambda: (build_stride_plan(t_l, cfg.sigma_one),
+                         build_stride_plan(t_r, cfg.sigma_one)), reps, dev),
+            "final_weights": median_wall_ms(lambda: color_depth_edge_weights(
+                left, disp_l[0], mask[0], num_d, cfg.alpha_dep_seg), reps, dev),
+            "final_tree": median_wall_ms(
+                lambda: build_segment_tree(w_f, *hw, **tree_args, weight_scale=255.0), reps, dev),
+            "final_plan": median_wall_ms(lambda: build_stride_plan(t_f, cfg.sigma), reps, dev),
         }
         device = {
             "phase1": cuda_ms(lambda: st._st2_phase1_group(lb, rb, plans1_dev, num_d, lr), reps),
@@ -1537,7 +1489,7 @@ def run_st2_phase(dev, started: float) -> dict:
             whole = (time.perf_counter() - t0) * 1e3
         else:
             accuracy = None
-            whole = wall_ms(lambda: st.st2_disparity(left, right, cfg), reps)
+            whole = median_wall_ms(lambda: st.st2_disparity(left, right, cfg), reps, dev)
         frame_prof = (None if hd else
                       device_profile(lambda: st.st2_disparity(left, right, cfg), 1, st_part))
         times[f"{hw[0]}x{hw[1]}"] = {"median_D_final_map": device["median_D_final_map"]}
@@ -2018,8 +1970,9 @@ def rank_worker(argv) -> int:
         group = mesh.disp_groups[next(iter(pieces))]
         parts_ms = {
             "key_kernel": cuda_ms(lambda: sad_wta.fused_block_matching_key(
-                slab, slab, 0, count, 64, 5)),
-            "all_reduce_min": cuda_ms(lambda: all_reduce(keys, dist.ReduceOp.MIN, group))}
+                slab, slab, 0, count, 64, 5), TIME_REPS),
+            "all_reduce_min": cuda_ms(lambda: all_reduce(keys, dist.ReduceOp.MIN, group),
+                                      TIME_REPS)}
         single_ms = time_step(one, lambda: single_step(sl1, sr1), reps=5) * 1e3 if rank == 0 \
             else None
         barrier()
@@ -2298,6 +2251,243 @@ def run_multi_card() -> dict:
     return found
 
 
+BENCH_ST_HW = (370, 463)  # the ST benches' scene: Art's own size
+ST_STREAM_FRAMES = 16     # st_streaming's and st2_streaming's frames, cut from 32 for time
+
+
+def _signature(v):
+    """What selects a kernel's launch: shapes and types of tensors, the
+    values of other arguments."""
+    if isinstance(v, torch.Tensor):
+        return ("tensor", tuple(v.shape), str(v.dtype))
+    if isinstance(v, (tuple, list)):
+        return tuple(_signature(x) for x in v)
+    return v
+
+
+def _copy(v):
+    if isinstance(v, torch.Tensor):
+        return v.clone()
+    if isinstance(v, (tuple, list)):
+        return tuple(_copy(x) for x in v)
+    return v
+
+
+class TwinRecorder:
+    """Inside ``with``, every kernel's launch function is wrapped: the first
+    CUDA launch of each signature keeps copies of its inputs and of its
+    output. ``hold()`` then holds each kept output against the kernel's plain
+    twin on the kept inputs, bit for bit, so that every shape a caller gives a
+    kernel is checked once, on the caller's own data."""
+
+    def __init__(self):
+        from gpu_stereo_matching_tpu_torch.kernels import (
+            ctmf_median, gray, remap, sad_wta, split_phase)
+        from gpu_stereo_matching_tpu_torch.ops import color
+        from gpu_stereo_matching_tpu_torch.ops import remap as plain_remap
+        from gpu_stereo_matching_tpu_torch.ops.postprocess import median_filter_u8
+        from gpu_stereo_matching_tpu_torch.ops.wta import wta_disparity
+
+        def remap_twin(entry, tensors, out, shape):
+            if entry == "gsm_remap_bilinear_u8":
+                return plain_remap.remap_bilinear_u8(*tensors)
+            return torch.stack(plain_remap.rectify_gray_pair(*tensors)).reshape(out.shape)
+
+        # (module, launch function, kernel (its counter's name, or a function
+        # of the arguments giving it), twin, output of a launch, on the card)
+        self.specs = [
+            (sad_wta, "_launch", "sad_wta",
+             lambda l, r, d, rad: sad_wta.fused_block_matching_reference(l, r, d, rad),
+             lambda args, out: out, lambda args: True),
+            (remap, "_launch",
+             lambda args: "remap_u8" if args[0] == "gsm_remap_bilinear_u8" else "front_end",
+             remap_twin,
+             lambda args, out: args[2], lambda args: True),
+            (gray, "grayscale_u8", "gray", color.grayscale_u8,
+             lambda args, out: out, lambda args: args[0].is_cuda),
+            (split_phase, "_launch_volume", "sad_volume", split_phase.sad_volume_reference,
+             lambda args, out: out, lambda args: True),
+            (split_phase, "_launch_wta", "wta_from_sad", wta_disparity,
+             lambda args, out: out, lambda args: True),
+            (ctmf_median, "_launch", "ctmf_median",
+             lambda x, r, m: median_filter_u8(x, r, "histogram", m),
+             lambda args, out: out, lambda args: True),
+        ]
+        self.seen = set()
+        self.kept = []
+        self.held = {}
+
+    def _wrap(self, fn, kernel, twin, output, on_card):
+        def wrapped(*args, **kwargs):
+            result = fn(*args, **kwargs)
+            name = kernel if isinstance(kernel, str) else kernel(args)
+            key = (name, _signature(args), _signature(sorted(kwargs.items())))
+            if on_card(args) and key not in self.seen:
+                self.seen.add(key)
+                self.kept.append((name, key, _copy(args), kwargs,
+                                  _copy(output(args, result)), twin))
+            return result
+        return wrapped
+
+    def __enter__(self):
+        self.originals = [(mod, attr, getattr(mod, attr)) for mod, attr, *_ in self.specs]
+        for (mod, attr, kernel, twin, output, on_card), (_, _, fn) in zip(self.specs,
+                                                                          self.originals):
+            setattr(mod, attr, self._wrap(fn, kernel, twin, output, on_card))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self.originals:
+            setattr(mod, attr, fn)
+
+    def hold(self) -> dict:
+        """Each launch kept since the last call against its twin; raises on a
+        difference. Returns the signatures held, by kernel."""
+        held = {}
+        for kernel, key, args, kwargs, got, twin in self.kept:
+            want = twin(*args, **kwargs)
+            if got.shape != want.shape or got.dtype != want.dtype or not torch.equal(got, want):
+                err = (int((got.long() - want.long()).abs().max())
+                       if got.shape == want.shape else -1)
+                raise AssertionError(f"{kernel} differs from its twin at {key} "
+                                     f"(max abs err {err})")
+            held[kernel] = held.get(kernel, 0) + 1
+            self.held[kernel] = self.held.get(kernel, 0) + 1
+        self.kept = []
+        torch.cuda.empty_cache()
+        return held
+
+
+def bench_launches() -> dict:
+    """Every bench's exact launches a kernel, from its own loop counts: a
+    timed run is warm-ups plus repeats, each call launching what its path
+    launches (kernel D once a frame or band, three times an ST-2 frame)."""
+    from gpu_stereo_matching_tpu_torch.bench import micro
+
+    n, m, k = micro.ITERS, max(micro.ITERS // 10, 1), max(micro.ITERS // 20, 1)
+    st_frames = st2_frames = ST_STREAM_FRAMES
+    return {
+        # 4 calls a run, one warm run and 5 timed.
+        "headline": {"sad_wta": 4 * (1 + 5)},
+        # Each stage one warm call and its iterations: G, B's u8 entry and
+        # the gradient n, the median r=3, A1, E1 and E2 m, D at r=5 and r=7
+        # k each (the histogram rows are plain torch).
+        "micro": {"gray": 1 + n, "remap_u8": 1 + n, "sad_wta": 1 + m, "sad_volume": 1 + m,
+                  "wta_from_sad": 1 + m, "ctmf_median": (1 + m) + 2 * (1 + k)},
+        # 4 process_batch calls a run, one warm run and 3 timed.
+        "streaming": {"sad_wta": 4 * (1 + 3), "front_end": 4 * (1 + 3)},
+        # Groups of 8: 4 timed group calls and the fetch's, 4 one-frame calls.
+        "st_profile": {"ctmf_median": 8 * (1 + 3) + (1 + 3) + 8},
+        # Two passes of the pipeline, then 4 group calls of 8.
+        "st_streaming": {"ctmf_median": 2 * st_frames + 8 * (1 + 3)},
+        # Two passes (3 a frame), phase 1 once to rebuild the trees, then 4
+        # calls of phase 1 (2 a frame) and phase 2 (1 a frame), groups of 8.
+        "st2_streaming": {"ctmf_median": 2 * st2_frames * 3 + 2 * 8 + (1 + 3) * 8 * 3},
+        # Groups of 4: the global tree 1 + 3 calls, each band count 1 + 3.
+        "st_hd": {"ctmf_median": 4 * (1 + 3) * (1 + 4 + 8)},
+        # 4 group calls of 4 frames, 4 band steps.
+        "st_config3": {"ctmf_median": 4 * (1 + 3) + (1 + 3)},
+        # The headline at 1080p and at 4K (B = 8), the front end 1 + 5 times.
+        "roofline": {"sad_wta": 2 * 4 * (1 + 5), "front_end": 1 + 5},
+        # The headline, for the compute time a frame.
+        "scaling": {"sad_wta": 4 * (1 + 5)},
+    }
+
+
+def run_bench_phase(dev, started: float) -> dict:
+    """Phase 20: the port's benches (``gpu_stereo_matching_tpu_torch/bench/``)
+    on the card, each at its defaults but for ``ST_STREAM_FRAMES``, with
+    every counter at 0 just before and its exact launches just after
+    (``bench_launches``); every JSON line a bench prints carries the card.
+    After each bench, every kernel launch of a signature not seen before is
+    held bit for bit against its plain twin on that launch's own inputs
+    (``TwinRecorder``). Returns the launches by kernel, A's split into A1
+    (micro's one-pair calls) and A2."""
+    import io
+
+    from gpu_stereo_matching_tpu_torch.bench import (
+        headline,
+        micro,
+        roofline,
+        scaling,
+        st2_streaming,
+        st_config3,
+        st_hd,
+        st_profile,
+        st_streaming,
+        streaming,
+    )
+    from gpu_stereo_matching_tpu_torch.io.calib_yaml import save_opencv_stereo_yaml
+
+    want = bench_launches()
+    totals = {}
+    t_phase = time.perf_counter()
+    twins = TwinRecorder()
+
+    def bench(name, run, echo=lambda result: {}, frames=None):
+        zero_launches()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf), twins:
+            result = run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = {k: v for k, v in all_launches().items() if v}
+        if got != want[name]:
+            raise AssertionError(f"bench {name} launched {got}, not {want[name]}")
+        t0 = time.perf_counter()
+        held = twins.hold()
+        twin_s = time.perf_counter() - t0
+        lines = [json.loads(x) for x in buf.getvalue().splitlines() if x.startswith("{")]
+        if any("card" not in x for x in lines):
+            raise AssertionError(f"bench {name} printed a line without the card: {lines}")
+        for kernel, count in got.items():
+            kernel = "sad_wta_single" if (kernel, name) == ("sad_wta", "micro") else kernel
+            totals[kernel] = totals.get(kernel, 0) + count
+        cut = {"num_frames": {"default": frames, "ran": ST_STREAM_FRAMES}} if frames else {}
+        log("20-bench", bench=name, seconds=seconds, launches=got, lines=lines, **echo(result),
+            held_to_twins={"new_signatures": held, "seconds": twin_s},
+            **({"cut_for_time": cut} if cut else {}), ok=True)
+        return result, buf.getvalue()
+
+    fps, _ = bench("headline", lambda: headline.main(device=dev))
+    stages, table = bench("micro", lambda: micro.run_micro_benchmarks(device=dev),
+                          lambda r: {"ms": {k: v * 1e3 for k, v in r.items()}})
+    if not table.startswith("card: ") or not all(v > 0 for v in stages.values()):
+        raise AssertionError(f"micro printed no card or a time <= 0: {table}")
+    with tempfile.TemporaryDirectory() as tmp:
+        calib = os.path.join(tmp, "synthetic_calib.yml")
+        save_opencv_stereo_yaml(calib, synthetic_calibration())
+        rig_fps, _ = bench("streaming", lambda: streaming.run_streaming_benchmark(
+            calib, calib_size_hw=(720, 1280), device=dev))
+        root = middlebury_scene(tmp, BENCH_ST_HW)
+        profile, _ = bench("st_profile", lambda: st_profile.run_profile(root, "Synth", device=dev))
+        bench("st_streaming", lambda: st_streaming.run_st_streaming_benchmark(
+            root, "Synth", num_frames=ST_STREAM_FRAMES, device=dev),
+            frames=st_streaming.NUM_FRAMES)
+        bench("st2_streaming", lambda: st2_streaming.run_st2_streaming_benchmark(
+            root, "Synth", num_frames=ST_STREAM_FRAMES, device=dev),
+            frames=st2_streaming.NUM_FRAMES)
+        hd, _ = bench("st_hd", lambda: st_hd.run_st_hd(root, "Synth", device=dev))
+        bench("st_config3", lambda: st_config3.run_config3(root, "Synth", device=dev))
+        rows, _ = bench("roofline", lambda: roofline.main(["--root", root, "--scene", "Synth"]))
+    bench("scaling", lambda: scaling.main([]))
+    if not (fps > 0 and rig_fps > 0 and profile["device_group_ms"] > 0):
+        raise AssertionError("a bench measured no time")
+    if any("skipped" in r or not r["measured_ms"] > 0 for r in rows):
+        raise AssertionError(f"the roofline skipped or measured nothing: {rows}")
+    if not all(0 <= v["bad2_vs_global_pct"] < 50 for k, v in hd.items() if k.startswith("bands")):
+        raise AssertionError(f"per-band maps far from the global tree's: {hd}")
+    if set(twins.held) != {"sad_wta" if k == "sad_wta_single" else k for k in totals}:
+        raise AssertionError(f"a kernel the benches launched was not held to its twin: "
+                             f"{twins.held}, {totals}")
+    totals["sad_wta_batched"] = totals.pop("sad_wta")
+    log("20-benches", seconds=time.perf_counter() - t_phase, launches=totals,
+        signatures_held_to_twins=twins.held,
+        since_start_s=time.perf_counter() - started, ok=True)
+    return totals
+
+
 def main() -> int:
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2494,9 +2684,9 @@ def main() -> int:
     # 7. Timings.
     a1 = (u8((1, 1080, 1920)), u8((1, 1080, 1920)))
     a32 = (u8((32, 1080, 1920)), u8((32, 1080, 1920)))
-    t_a1 = cuda_ms(lambda: sad_wta.fused_block_matching_batched(*a1, 64, 5))
-    p_a1 = cuda_ms(lambda: sad_wta.fused_block_matching_reference(*a1, 64, 5))
-    t_a32 = cuda_ms(lambda: sad_wta.fused_block_matching_batched(*a32, 64, 5))
+    t_a1 = cuda_ms(lambda: sad_wta.fused_block_matching_batched(*a1, 64, 5), TIME_REPS)
+    p_a1 = cuda_ms(lambda: sad_wta.fused_block_matching_reference(*a1, 64, 5), TIME_REPS)
+    t_a32 = cuda_ms(lambda: sad_wta.fused_block_matching_batched(*a32, 64, 5), TIME_REPS)
     p_a32 = cuda_ms(lambda: sad_wta.fused_block_matching_reference(*a32, 64, 5), reps=3)
     del a32
     log("7-time", kernel="sad_wta", shape=[1, 1080, 1920, 64, 5], ms_per_frame=t_a1,
@@ -2511,7 +2701,7 @@ def main() -> int:
     for what, img, count in (("1080p_one_image", img_1080, 1), ("720p_batch_of_8", bgr_8, 8)):
         run = lambda img=img: gray.gray_blockmatching_bgr(img)  # noqa: E731
         times_g[what] = {
-            "ms_per_image": cuda_ms(run) / count,
+            "ms_per_image": cuda_ms(run, TIME_REPS) / count,
             "device_ms_per_image": ratio(device_ms_per_call(run)[0], count),
             "plain_ms_per_image": cuda_ms(lambda img=img: color.gray_blockmatching_bgr(img),
                                           reps=3) / count,
@@ -2525,9 +2715,9 @@ def main() -> int:
         g = u8((b, *size_hw))
         run = lambda g=g: remap.remap_bilinear_u8_direct(g, mx, my)  # noqa: E731
         times_b[b] = {
-            "ms_per_frame": cuda_ms(run) / b,
+            "ms_per_frame": cuda_ms(run, TIME_REPS) / b,
             "device_ms_per_frame": ratio(device_ms_per_call(run)[0], b),
-            "plain_ms_per_frame": cuda_ms(lambda g=g: remap_bilinear_u8(g, mx, my)) / b,
+            "plain_ms_per_frame": cuda_ms(lambda g=g: remap_bilinear_u8(g, mx, my), TIME_REPS) / b,
             "bound_ms_per_frame": bound(*remap_work(b, n_720, 1, False))["bound_ms"] / b}
     log("7-time", kernel="remap", shape=[*size_hw], by_batch=times_b,
         plan=remap.front_end_plan(size_hw, size_hw, 8, views=1, device=dev))
@@ -2545,17 +2735,17 @@ def main() -> int:
         device, kernels = device_ms_per_call(run)
         comp_device, comp_kernels = device_ms_per_call(comp)
         times_f[b] = {
-            "ms": cuda_ms(run), "device_ms": device, "kernels_seen_per_call": kernels,
-            "composition_ms": cuda_ms(comp), "composition_device_ms": comp_device,
+            "ms": cuda_ms(run, TIME_REPS), "device_ms": device, "kernels_seen_per_call": kernels,
+            "composition_ms": cuda_ms(comp, TIME_REPS), "composition_device_ms": comp_device,
             "composition_kernels_seen_per_call": comp_kernels,
             "plain_ms": cuda_ms(lambda l=left_bgr, r=right_bgr: plain_front_end(l, r, *rig_maps),
                                 reps=3),
             **bound(*remap_work(b, n_720, 2, True))}
     log("7-time", kernel="rectify_gray_pair", shape=[*size_hw], views=2, by_batch=times_f,
         plan=remap.front_end_plan(size_hw, size_hw, 8, device=dev))
-    t_rig = cuda_ms(lambda: rig.process_batch(lb, rb))
+    t_rig = cuda_ms(lambda: rig.process_batch(lb, rb), TIME_REPS)
     t_plain_rig = cuda_ms(lambda: plain_path(lb, rb), reps=3)
-    t_one = cuda_ms(lambda: rig.process(*pairs[0]))
+    t_one = cuda_ms(lambda: rig.process(*pairs[0]), TIME_REPS)
     log("7-time", rig=[*size_hw, num_d, radius], batch=8, ms=t_rig, fps=8e3 / t_rig,
         plain_ms=t_plain_rig, plain_fps=8e3 / t_plain_rig, process_ms=t_one,
         process_fps=1e3 / t_one)
@@ -2571,6 +2761,7 @@ def main() -> int:
     tiled = run_tiled_phase(dev, started)
     tiled_launches = tiled["launches"]
     processes = run_process_phase(dev, started)
+    benches = run_bench_phase(dev, started)
 
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "gpu_stereo_matching_tpu")]
@@ -2578,19 +2769,29 @@ def main() -> int:
         raise AssertionError(f"jax or the JAX package was imported: {bad}")
     px = 1080 * 1920
     print(json.dumps({"kernels": [
-        # 8 operations per pixel and disparity; 2 bytes in, 4 out per pixel.
-        kernel_entry("fused_block_matching", "sad_wta.cu", "sad_wta.py:398",
-                     launches["sad_wta_single"], err_a, t_a1, p_a1,
-                     bound(8 * 64 * px, 6 * px), None, [1, 1080, 1920, 64, 5]),
-        kernel_entry("fused_block_matching_batched", "sad_wta.cu", "sad_wta.py:727",
-                     launches["sad_wta_batched"], err_a, t_a32, p_a32,
-                     bound(32 * 8 * 64 * px, 32 * 6 * px), None, [32, 1080, 1920, 64, 5]),
+        # fused_sad_work: 8 operations per pixel and disparity; 2 bytes in, 4
+        # out per pixel. A1: the rig's process (phase 6) and micro's one-pair
+        # calls (phase 20); A2: the rig's batches and the benches' batches.
+        {**kernel_entry("fused_block_matching", "sad_wta.cu", "sad_wta.py:398",
+                        launches["sad_wta_single"] + benches["sad_wta_single"], err_a, t_a1,
+                        p_a1, bound(*fused_sad_work(1080, 1920, 64)), None,
+                        [1, 1080, 1920, 64, 5]),
+         "launches_by_path": {"rig": launches["sad_wta_single"],
+                              "benches": benches["sad_wta_single"]}},
+        {**kernel_entry("fused_block_matching_batched", "sad_wta.cu", "sad_wta.py:727",
+                        launches["sad_wta_batched"] + benches["sad_wta_batched"], err_a, t_a32,
+                        p_a32, bound(*fused_sad_work(1080, 1920, 64, frames=32)), None,
+                        [32, 1080, 1920, 64, 5]),
+         "launches_by_path": {"rig": launches["sad_wta_batched"],
+                              "benches": benches["sad_wta_batched"]}},
         # remap_work: 10 operations a pixel once a launch, 12 a pixel and
-        # frame; the maps once, 1 byte in and 1 out a pixel and frame. No path
-        # runs this entry since the rig's front end replaced it (phase 6).
-        {**kernel_entry("remap_bilinear_u8", "remap.cu", "remap.py:457", launches["remap_u8"],
-                        0, times_b[1]["ms_per_frame"], times_b[1]["plain_ms_per_frame"],
+        # frame; the maps once, 1 byte in and 1 out a pixel and frame. Since
+        # the rig's front end replaced it (phase 6) only micro runs this entry.
+        {**kernel_entry("remap_bilinear_u8", "remap.cu", "remap.py:457",
+                        launches["remap_u8"] + benches["remap_u8"], 0,
+                        times_b[1]["ms_per_frame"], times_b[1]["plain_ms_per_frame"],
                         bound(*remap_work(1, n_720, 1, False)), None, [1, *size_hw]),
+         "launches_by_path": {"rig": launches["remap_u8"], "benches": benches["remap_u8"]},
          "device_ms": times_b[1]["device_ms_per_frame"],
          "b8_ms_per_frame": times_b[8]["ms_per_frame"],
          "b8_device_ms_per_frame": times_b[8]["device_ms_per_frame"],
@@ -2605,41 +2806,47 @@ def main() -> int:
          "device_ms": times_f[8]["device_ms"], "composition_ms": times_f[8]["composition_ms"],
          "b1_ms": times_f[1]["ms"], "b1_device_ms": times_f[1]["device_ms"],
          "launches": (launches["front_end_single"] + launches["front_end_batched"]
-                      + processes["rectify_launches"]),
+                      + processes["rectify_launches"] + benches["front_end"]),
          "launches_by_path": {"rig": launches["front_end_single"] + launches["front_end_batched"],
-                              "rectify_cli": processes["rectify_launches"]}},
+                              "rectify_cli": processes["rectify_launches"],
+                              "benches": benches["front_end"]}},
         # gray_work: 8 operations a pixel; 3 bytes in, 1 out. No TPU kernel:
         # the JAX package's gray is an XLA tensordot. Launches: the bm CLI's
-        # two images (phase 10) and the middlebury command's bm and bm+
-        # (phase 18).
-        {**kernel_entry("gray_u8", "gray.cu", "", bm_launches["gray"] + tiled_launches["gray"], 0,
+        # two images (phase 10), the middlebury command's bm and bm+ (phase
+        # 18) and micro (phase 20).
+        {**kernel_entry("gray_u8", "gray.cu", "",
+                        bm_launches["gray"] + tiled_launches["gray"] + benches["gray"], 0,
                         times_g["1080p_one_image"]["ms_per_image"],
                         times_g["1080p_one_image"]["plain_ms_per_image"], bound(*gray_work(px)),
                         None, [1080, 1920, 3]),
          "replaces": "gpu_stereo_matching_tpu/ops/color.py:33 (an XLA tensordot, no TPU kernel)",
          "device_ms": times_g["1080p_one_image"]["device_ms_per_image"],
-         "launches_by_path": {"bm_cli": bm_launches["gray"], "middlebury": tiled_launches["gray"]}},
+         "launches_by_path": {"bm_cli": bm_launches["gray"], "middlebury": tiled_launches["gray"],
+                              "benches": benches["gray"]}},
         # Kernel C on the sharded steps of one controller (phase 13) and of
         # the ranks of phase 19 (two gloo ranks, one NCCL rank).
         {**key_kernel, "launches": key_kernel["launches"] + processes["key_launches"],
          "launches_by_path": {"sharded_single_controller": key_kernel["launches"],
                               "multi_process": processes["key_launches"]}},
-        # E1 and E2 run on bm+ (phase 10) and through the middlebury command's
-        # bm and bm+ (phase 18).
-        *({**entry, "launches": entry["launches"] + tiled_launches[name],
-           "launches_by_path": {"bm+": entry["launches"], "middlebury": tiled_launches[name]}}
+        # E1 and E2 run on bm+ (phase 10), through the middlebury command's
+        # bm and bm+ (phase 18) and in micro's split-phase row (phase 20).
+        *({**entry, "launches": entry["launches"] + tiled_launches[name] + benches[name],
+           "launches_by_path": {"bm+": entry["launches"], "middlebury": tiled_launches[name],
+                                "benches": benches[name]}}
           for entry, name in zip(bm_plus[:2], ("sad_volume", "wta_from_sad"))),
         # Kernel D runs on every path with a median: once a bm+ frame (phase
         # 10), once an ST-1 frame (phase 16), three times an ST-2 frame (phase
         # 17) and so in the streaming pipelines (phase 17), once a band of a
         # tiled, sharded or banded ST-1 frame and three times a band of an
-        # ST-2 one, and through the middlebury command (phase 18);
-        # ``launches`` is their sum.
+        # ST-2 one, and through the middlebury command (phase 18), and in
+        # micro and every ST bench (phase 20); ``launches`` is their sum.
         {**bm_plus[2], "launches": (bm_plus[2]["launches"] + st1["launches"] + st2["launches"]
-                                    + st2["pipeline_launches"] + tiled_launches["ctmf_median"]),
+                                    + st2["pipeline_launches"] + tiled_launches["ctmf_median"]
+                                    + benches["ctmf_median"]),
          "launches_by_path": {"bm+": bm_plus[2]["launches"], "st1": st1["launches"],
                               "st2": st2["launches"], "st_pipelines": st2["pipeline_launches"],
-                              "per_band_st_and_middlebury": tiled_launches["ctmf_median"]},
+                              "per_band_st_and_middlebury": tiled_launches["ctmf_median"],
+                              "benches": benches["ctmf_median"]},
          "st1_map_ms_by_shape": st1["median_ms"], "st2_map_ms_by_shape": st2["median_ms"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

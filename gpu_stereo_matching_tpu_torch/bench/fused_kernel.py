@@ -39,6 +39,7 @@ import re
 import statistics
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -113,9 +114,10 @@ def device_ms(fn, reps: int):
     return sum(kernels) / len(kernels) / 1e3 if kernels else None
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Median milliseconds of ``fn()`` between CUDA events, after 2 warm-ups."""
-    for _ in range(2):
+def cuda_ms(fn, reps: int, warmups: int = 2, pick=statistics.median) -> float:
+    """``pick`` (the median by default) of the milliseconds of ``reps`` calls
+    of ``fn()`` between CUDA events, after ``warmups`` calls."""
+    for _ in range(warmups):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -127,7 +129,37 @@ def cuda_ms(fn, reps: int) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return pick(times)
+
+
+def best_ms(fn, reps: int, device: torch.device, warmups: int = 1) -> float:
+    """Least milliseconds of ``reps`` calls of ``fn()`` after ``warmups``:
+    between CUDA events on a card (the device's work, and any gap that the
+    host's enqueue leaves in the stream), by the host clock on the CPU."""
+    if device.type == "cuda":
+        return cuda_ms(fn, reps, warmups, min)
+    return wall_ms(fn, reps, device, warmups)
+
+
+def wall_ms(fn, reps: int, device: torch.device, warmups: int = 1, pick=min) -> float:
+    """``pick`` (the least by default) of the milliseconds of ``reps`` calls
+    of ``fn()`` after ``warmups``, by the host clock, each call ended by a
+    synchronize on a card: work that holds the host (copies, tree builds, a
+    pipeline)."""
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    for _ in range(warmups):
+        fn()
+    sync()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return pick(times)
 
 
 def smooth_maps(h: int, w: int, shift: float = 0.0):

@@ -18,8 +18,18 @@ devices, a point whose mesh is smaller than the world leaves the last ranks
 idle at the barriers, a step's time is its slowest rank's, and rank 0
 prints the lines.
 
-The JAX module's communication model (``predict_scaling_efficiency``) rests
-on TPU link rates and is not carried over.
+:func:`predict_scaling_efficiency` puts arithmetic behind the multi-card
+target where it cannot be measured: the bytes each sharding strategy moves
+a frame (the JAX module's strategies and byte counts), over link rates
+from data sheets, against a measured compute time a frame. Collectives
+are assumed fully exposed (no overlap with compute), ring schedules cost
+2(p-1)/p of the array, and the rates are arguments, so a deployment can
+re-run it with its own.
+
+Run: ``python -m gpu_stereo_matching_tpu_torch.bench.scaling`` prints the
+prediction, the compute time a frame measured on the card by the headline
+(``bench/headline.py``); ``--measure`` then also sweeps the ``data`` axis
+on the card.
 """
 
 from __future__ import annotations
@@ -161,3 +171,158 @@ def run_scaling_benchmark(
             print(json.dumps(dataclasses.asdict(pt)), flush=True)
         data *= 2
     return points
+
+
+# ---------------------------------------------------------------------------
+# Predicted scaling efficiency from communication volume.
+# ---------------------------------------------------------------------------
+
+# Data sheets, one direction: NVLink 4 on an H100 SXM (900 GB/s both ways);
+# across hosts, one 400 Gb/s InfiniBand NDR port.
+NVLINK4_BYTES_PER_S = 4.5e11
+NDR400_BYTES_PER_S = 5.0e10
+# The keys' all_reduce(MIN) of a `disp`-across-cards step, 1080x1920, B=8
+# (66 MB of int32 keys) over 4 H100s, measured by chip_smoke.py phase 19
+# (PERF.md section 5): the least and the most of its ranks, ms.
+MEASURED_KEY_ALLREDUCE_MS = (0.425, 0.449)
+
+
+def predict_scaling_efficiency(
+    h: int = 1080,
+    w: int = 1920,
+    sad_radius: int = 5,
+    median_radius: int = 3,
+    n_chips: int = 8,
+    n_hosts: int = 2,
+    *,
+    compute_ms_per_frame: float,
+    link_bytes_per_s: float = NVLINK4_BYTES_PER_S,
+    host_link_bytes_per_s: float = NDR400_BYTES_PER_S,
+) -> List[dict]:
+    """Predict each strategy's scaling efficiency for BASELINE config 5 on
+    ``n_chips`` cards (``n_hosts`` hosts).
+
+    ``eff = t_compute / (t_compute + t_comm)``, ``t_compute`` the measured
+    ``compute_ms_per_frame`` split evenly over the cards and ``t_comm`` the
+    fully exposed transfer time of the strategy's collectives a frame, over
+    ``link_bytes_per_s`` within a host (NVLink) or ``host_link_bytes_per_s``
+    across hosts. Byte counts follow ``parallel/stereo.py``,
+    ``parallel/halo.py`` and ``parallel/segment_tree.py``.
+    """
+    t_comp = compute_ms_per_frame / n_chips * 1e-3  # seconds, per card
+
+    rows: List[dict] = []
+
+    def add(strategy, link, bw, bytes_per_frame, note):
+        t_comm = bytes_per_frame / bw
+        eff = t_comp / (t_comp + t_comm)
+        rows.append({
+            "strategy": strategy,
+            "link": link,
+            "comm_bytes_per_frame": int(bytes_per_frame),
+            "t_compute_us": round(t_comp * 1e6, 1),
+            "t_comm_us": round(t_comm * 1e6, 2),
+            "predicted_efficiency": round(eff, 4),
+            "meets_85pct": bool(eff >= 0.85),
+            "note": note,
+        })
+
+    # Data parallel over frames: no collective a frame.
+    add("data_parallel", "none", link_bytes_per_s, 0,
+        "frame sharding, parallel/stereo.py shard_batch; no collective")
+
+    # Space (H-band) sharding: `halo` rows of W bytes of both u8 images to
+    # each neighbor (parallel/halo.py), per card and frame.
+    halo = sad_radius
+    add("space_bm", "NVLink", link_bytes_per_s, 2 * 2 * halo * w,
+        f"halo={halo} rows x W={w} u8, 2 images, 2 directions")
+    halo2 = sad_radius + median_radius  # the config-2 chain (LR + median)
+    add("space_bm_config2", "NVLink", link_bytes_per_s, 2 * 2 * halo2 * w,
+        f"chained-window halo={halo2} (SAD + median)")
+
+    # Disparity sharding: the packed keys' minimum over the disp axis, a
+    # ring all-reduce of an (H, W) int32 array. The memory lever for
+    # volumes that exceed one card, not a throughput strategy: at full
+    # height the reduction alone outweighs a card's compute.
+    key_bytes = h * w * 4
+    ar = 2 * (n_chips - 1) / n_chips
+    add("disp_wta_allreduce (memory lever, not prescribed)", "NVLink", link_bytes_per_s,
+        ar * key_bytes,
+        "packed-key all_reduce(MIN) of (H,W) i32; comm-bound at full H")
+    add("disp2_x_space4 (memory lever, not prescribed)", "NVLink", link_bytes_per_s,
+        (2 * (2 - 1) / 2) * (h // 4) * w * 4 + 2 * 2 * halo * w,
+        "2-way key all-reduce on a 1/4-height band + band halos")
+
+    # Segment trees: independent per-band trees move nothing across cards;
+    # their cost is accuracy (the share off the global tree's map).
+    add("st_per_band_trees", "none", link_bytes_per_s, 0,
+        "independent band trees: no halo, no reduce; the cost is accuracy")
+
+    # Across hosts: frames across hosts ship nothing a frame; a band
+    # boundary across hosts is the worst reasonable layout.
+    add("hosts_data_parallel", "NDR", host_link_bytes_per_s, 0,
+        f"{n_hosts} hosts, frame sharding across hosts; no collective")
+    add("hosts_space_split", "NDR", host_link_bytes_per_s, 2 * 2 * halo * w,
+        "band boundary across hosts; still small")
+    return rows
+
+
+def print_scaling_prediction(extra: Optional[dict] = None, **kw) -> List[dict]:
+    """Print :func:`predict_scaling_efficiency`'s rows, then the worst
+    prescribed strategy against the 85% target; ``extra`` (the card that
+    measured the compute time) is added to every line."""
+    extra = extra or {}
+    rows = predict_scaling_efficiency(**kw)
+    for r in rows:
+        print(json.dumps({**r, **extra}))
+    worst_relevant = min(
+        r["predicted_efficiency"] for r in rows if "not prescribed" not in r["strategy"]
+    )
+    print(json.dumps({
+        "metric": "predicted_scaling_efficiency_config5",
+        "value": worst_relevant,
+        "unit": f"fraction at {kw.get('n_chips', 8)} cards "
+                "(worst prescribed strategy, fully exposed comm)",
+        "target": 0.85,
+        "pass": bool(worst_relevant >= 0.85),
+        **extra,
+    }), flush=True)
+    return rows
+
+
+def key_allreduce_model_ms(frames: int = 8, h: int = 1080, w: int = 1920, n_chips: int = 4,
+                           link_bytes_per_s: float = NVLINK4_BYTES_PER_S) -> float:
+    """The model's time of the keys' ring all-reduce of ``frames`` (H, W)
+    int32 arrays over ``n_chips`` cards, ms."""
+    return 2 * (n_chips - 1) / n_chips * frames * h * w * 4 / link_bytes_per_s * 1e3
+
+
+def main(argv=None) -> None:
+    import argparse
+
+    from gpu_stereo_matching_tpu_torch.bench import headline
+    from gpu_stereo_matching_tpu_torch.bench.fused_kernel import card
+
+    ap = argparse.ArgumentParser(description="scaling prediction; --measure sweeps data")
+    ap.add_argument("--measure", action="store_true",
+                    help="also sweep data = 1, 2, 4, 8 on the card (a virtual mesh on one card)")
+    args = ap.parse_args(argv)
+    compute_ms = 1000.0 / headline.main()
+    extra = {"card": card()}
+    print_scaling_prediction(extra, compute_ms_per_frame=compute_ms)
+    print(json.dumps({
+        "metric": "key_allreduce_4_cards_66mb_ms",
+        "model_ms": key_allreduce_model_ms(),
+        "measured_ms": list(MEASURED_KEY_ALLREDUCE_MS),
+        "unit": "ms (model: ring all-reduce over NVLink 4 at the data sheet's rate; "
+                "measured: chip_smoke.py phase 19)",
+        **extra,
+    }), flush=True)
+    if args.measure:
+        n = torch.cuda.device_count()
+        run_scaling_benchmark(MeshConfig(data=8, space=1, disp=1),
+                              [f"cuda:{i % n}" for i in range(8)])
+
+
+if __name__ == "__main__":
+    main()

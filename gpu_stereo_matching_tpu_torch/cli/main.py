@@ -1,5 +1,5 @@
-"""Command line of the port: the ``st``, ``bm``, ``rectify``, ``middlebury``
-and ``calibrate`` subcommands.
+"""Command line of the port: the ``st``, ``bm``, ``rectify``, ``middlebury``,
+``calibrate`` and ``bench`` subcommands.
 
 ``st`` is the reference's STMatching CLI (``STMatching/main.cpp:40-67``):
 a BGR pair in, the ST-1 (``--method st1``, the default) or ST-2
@@ -20,11 +20,15 @@ first and, unless ``--keep-intrinsics``, scales the intrinsics to match.
 
 ``bm``, ``st``, ``rectify`` and ``middlebury`` run on the card
 (``--device cuda``, the default) and raise where there is none;
-``--device cpu`` runs the plain torch versions.
+``--device cpu`` runs the plain torch versions. ``bench`` runs on the card
+only.
 
 ``middlebury`` runs the accuracy harness (``bench/middlebury.py``) over a
 directory of Middlebury scenes and prints each pipeline's bad-2.0 per
 scene, then their mean. Unlike the JAX command, ``--root`` has no default.
+
+``bench`` prints the headline benchmark's JSON line
+(``bench/headline.py``: the fused kernel at 1080p, 64 disparities, B=32).
 
 ``calibrate`` is the reference's ``CalibrationTest`` flow without its
 camera loop, all on the host: chessboard corners in each capture pair
@@ -37,6 +41,7 @@ or ``python -m gpu_stereo_matching_tpu_torch.cli.main bm L.png R.png out.png --l
 or ``python -m gpu_stereo_matching_tpu_torch.cli.main calibrate 'Left_*.png' 'Right_*.png' calib.yml --cols 6 --rows 6``
 then ``python -m gpu_stereo_matching_tpu_torch.cli.main rectify --calib calib.yml --left L.png --right R.png --out-prefix rect``
 or ``python -m gpu_stereo_matching_tpu_torch.cli.main middlebury --root DIR --pipelines bm,bm+,st1,st2``
+or ``python -m gpu_stereo_matching_tpu_torch.cli.main bench``
 """
 
 from __future__ import annotations
@@ -225,6 +230,13 @@ def _cmd_calibrate(args) -> int:
     return 0
 
 
+def _cmd_bench(args) -> int:
+    from gpu_stereo_matching_tpu_torch.bench import headline
+
+    headline.main()
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="gpu_stereo_matching_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
@@ -286,6 +298,9 @@ def build_parser() -> argparse.ArgumentParser:
     cal.add_argument("--square-size", type=float, default=1.0)
     cal.add_argument("--backend", choices=("native", "opencv"), default="native")
     cal.set_defaults(fn=_cmd_calibrate)
+
+    be = sub.add_parser("bench", help="headline throughput benchmark")
+    be.set_defaults(fn=_cmd_bench)
     return p
 
 

@@ -55,6 +55,16 @@ PORT_MODULES = [
     "gpu_stereo_matching_tpu_torch.bench.fused_kernel",
     "gpu_stereo_matching_tpu_torch.bench.scaling",
     "gpu_stereo_matching_tpu_torch.bench.middlebury",
+    "gpu_stereo_matching_tpu_torch.bench",
+    "gpu_stereo_matching_tpu_torch.bench.headline",
+    "gpu_stereo_matching_tpu_torch.bench.micro",
+    "gpu_stereo_matching_tpu_torch.bench.streaming",
+    "gpu_stereo_matching_tpu_torch.bench.st_profile",
+    "gpu_stereo_matching_tpu_torch.bench.st_streaming",
+    "gpu_stereo_matching_tpu_torch.bench.st2_streaming",
+    "gpu_stereo_matching_tpu_torch.bench.st_hd",
+    "gpu_stereo_matching_tpu_torch.bench.st_config3",
+    "gpu_stereo_matching_tpu_torch.bench.roofline",
 ]
 
 # Modules that must not be loaded once the port is: jax, and the JAX package
