@@ -211,7 +211,26 @@ Phases, each printing its own line:
    to ``ST_STREAM_FRAMES``, are printed with their default in their bench's
    line. To run it alone: ``run_bench_phase(torch.device("cuda:0"), time.perf_counter())``
    after ``_build.build()``, ``_build.load_library()`` and
-   ``tree.builder._compile_library()``.
+   ``tree.builder._compile_library()``;
+21. the heavy-path, plan-order and coded tree filters of ``tree/hpd.py``
+   and ST-1's device paths over them, on phase 16's scene: at 180x320 each
+   formulation's filtered volume and map (HPD, plan-order, coded with the
+   doubling and with the associative scan) on the card equal the port's
+   CPU run bit for bit, and the coded filter with the associative scan
+   equals the plan-order one; at 720x1280 on one tree, each plan's native
+   build by the host clock and its bytes, each filter by CUDA events with
+   its launches a call, busy time and idle share under ``torch.profiler``
+   beside the stride filter on the same tree (the JAX tool
+   ``tools/bench_stride.py``'s A/B), and each map's share equal to the
+   stride map and within 1 level of the truth; then over 4 of phase 17's
+   frames ``_st1_device_group`` with stacked plan-order and coded plans,
+   ``_st1_device_batched`` and ``_st1_device_merged``, each with every
+   counter at 0 just before and its exact launches of D just after, equal
+   to its per-frame ``_st1_device`` calls bit for bit, and timed a frame
+   by events with its launches a call. Every launch of D in the phase is
+   counted against its loop counts and held, at each new signature, to
+   its twin. To run it alone: ``run_hpd_phase(torch.device("cuda:0"),
+   time.perf_counter())`` after the builds of phase 20.
 
 Each kernel's entry of the summary line carries its bound
 (``bench/roofline.py``): the least time the card could take, the larger of
@@ -2488,6 +2507,230 @@ def run_bench_phase(dev, started: float) -> dict:
     return totals
 
 
+HPD_CHECK_HW = (180, 320)  # the card against the port's CPU run, bit for bit
+HPD_FRAMES = 4             # frames of the group paths at 720x1280
+# Filter formulations on one tree: the stride filter of the main path, then
+# tree/hpd.py's heavy-path, plan-order and coded filters (the coded one
+# with both of its scans).
+HPD_KINDS = ("stride", "hpd", "po", "coded", "coded_assoc")
+
+
+def hpd_plans(tree, sigma, dev) -> dict:
+    """Each formulation's plan of ``tree`` on ``dev``, built by the native
+    emitters (the two coded runs share one plan)."""
+    from gpu_stereo_matching_tpu_torch.tree.hpd import CodedPlan, HeavyPathPlan, PlanOrderPlan
+    from gpu_stereo_matching_tpu_torch.tree.stride import StridePlan
+
+    plans = {"stride": StridePlan.from_tree(tree, sigma, device=dev),
+             "hpd": HeavyPathPlan.from_tree(tree, sigma, device=dev),
+             "po": PlanOrderPlan.from_tree(tree, sigma, device=dev),
+             "coded": CodedPlan.from_tree(tree, sigma, device=dev)}
+    plans["coded_assoc"] = plans["coded"]
+    return plans
+
+
+def hpd_filter(kind, nodes, plan):
+    """The (N, D) volume of one formulation."""
+    from gpu_stereo_matching_tpu_torch.models import segment_tree as st
+    from gpu_stereo_matching_tpu_torch.tree.hpd import tree_filter_nodes_po_coded
+
+    if kind == "coded_assoc":
+        return tree_filter_nodes_po_coded(nodes, plan, assoc_scan=True)
+    return st._filter(nodes, plan)
+
+
+def run_hpd_phase(dev, started: float) -> dict:
+    """Phase 21: the heavy-path, plan-order and coded filters of
+    ``tree/hpd.py`` and ST-1's group paths over them. At 180x320 each
+    formulation's filtered volume and map on the card equal the port's CPU
+    run bit for bit; at 720x1280 on one tree the native plan builds by the
+    host clock, the plans' bytes, each filter by CUDA events with its
+    launches a call, busy time and idle share under ``torch.profiler``
+    beside the stride filter, and each map's share equal to the stride
+    map's and within 1 level of the truth; then over 4 frames of their own
+    trees ``_st1_device_group`` with stacked plan-order and coded plans,
+    ``_st1_device_batched`` and ``_st1_device_merged``, each with every
+    counter at 0 just before and its exact launches just after, each equal
+    to its per-frame ``_st1_device`` calls bit for bit, timed a frame by
+    events with its launches a call. Every launch of kernel D in the phase
+    is counted against its loop counts, and D's first launch at each new
+    signature is held to its twin (``TwinRecorder``). Returns D's launches."""
+    from gpu_stereo_matching_tpu_torch.core.config import SegmentTreeConfig
+    from gpu_stereo_matching_tpu_torch.kernels import ctmf_median
+    from gpu_stereo_matching_tpu_torch.models import segment_tree as st
+    from gpu_stereo_matching_tpu_torch.ops.cost import color_gradient_cost_volume
+    from gpu_stereo_matching_tpu_torch.tree.builder import build_segment_tree, color_edge_weights
+    from gpu_stereo_matching_tpu_torch.tree.hpd import (
+        CodedPlan,
+        HeavyPathPlan,
+        PlanOrderPlan,
+        converged_coded_batch,
+        converged_plan_batch,
+        merge_plans,
+    )
+    from gpu_stereo_matching_tpu_torch.tree.stride import build_stride_plan
+
+    cfg = SegmentTreeConfig()  # D=60, sigma 0.1, median r=3, scale 4
+    num_d, sigma = cfg.max_disp_levels, cfg.sigma
+    cpu = torch.device("cpu")
+    t_phase = time.perf_counter()
+    twins = TwinRecorder()
+    d_want = 0  # kernel D's launches this phase, from its loop counts
+
+    def tree_of(left):
+        return build_segment_tree(color_edge_weights(left), *left.shape[:2], tau=cfg.tau,
+                                  min_size=cfg.min_size_seg, penalty=cfg.penalty_cross_seg)
+
+    def map_of(kind, left_t, right_t, plan):
+        """One formulation's median-filtered map (one launch of D on a card)."""
+        if kind == "coded_assoc":
+            cost = color_gradient_cost_volume(left_t, right_t, num_d)
+            return st._wta_median(hpd_filter(kind, st._to_nodes(cost), plan), cost.shape[1:])
+        return st._st1_device(left_t, right_t, plan, num_d)
+
+    zero_launches()
+    with twins:
+        # The card against the port's CPU run at 180x320, bit for bit.
+        left, right, _truth = st_pair(HPD_CHECK_HW)
+        plans = hpd_plans(tree_of(left), sigma, cpu)
+        lt, rt = torch.from_numpy(left), torch.from_numpy(right)
+        nodes_cpu = st._to_nodes(color_gradient_cost_volume(lt, rt, num_d))
+        nodes_card = nodes_cpu.to(dev)
+        equal = {}
+        for kind in HPD_KINDS[1:]:
+            plan_card = plans[kind].to(dev)
+            on_cpu = hpd_filter(kind, nodes_cpu, plans[kind])
+            on_card = hpd_filter(kind, nodes_card, plan_card)
+            map_cpu = map_of(kind, lt, rt, plans[kind])
+            map_card = map_of(kind, lt.to(dev), rt.to(dev), plan_card)
+            d_want += 1
+            equal[kind] = {"filtered": bool(torch.equal(on_card.cpu(), on_cpu)),
+                           "map": bool(torch.equal(map_card.cpu(), map_cpu))}
+            if not all(equal[kind].values()):
+                log("21-hpd-card-vs-cpu", shape=[*HPD_CHECK_HW, num_d], kind=kind,
+                    equal=equal[kind], ok=False,
+                    filtered_max_abs_diff=float((on_card.cpu() - on_cpu).abs().max()),
+                    map_equal_share=float((map_card.cpu() == map_cpu).float().mean()))
+                raise AssertionError(f"{kind} on the card differs from the CPU run")
+            if kind == "coded_assoc" and not torch.equal(on_card, hpd_filter(
+                    "po", nodes_card, plans["po"].to(dev))):
+                raise AssertionError("coded with the associative scan differs from plan-order")
+        log("21-hpd-card-vs-cpu", shape=[*HPD_CHECK_HW, num_d], equal=equal,
+            coded_assoc_equals_po=True, seconds=time.perf_counter() - t_phase, ok=True)
+        del nodes_cpu, nodes_card
+
+        # One 720x1280 frame: the native builds by the host clock, each
+        # filter by events and under the profiler, beside the stride filter.
+        t_stage = time.perf_counter()
+        left, right, truth = st_pair(ST_HW)
+        tree = tree_of(left)
+        builds = {
+            "stride": lambda: build_stride_plan(tree, sigma),
+            "hpd": lambda: HeavyPathPlan.from_tree(tree, sigma),
+            "po": lambda: PlanOrderPlan.from_tree(tree, sigma),
+            "coded": lambda: CodedPlan.from_tree(tree, sigma),
+        }
+        build_ms = {k: median_wall_ms(fn, 3, cpu) for k, fn in builds.items()}
+        plans = hpd_plans(tree, sigma, dev)
+        l_dev, r_dev = torch.from_numpy(left).to(dev), torch.from_numpy(right).to(dev)
+        nodes = st._to_nodes(color_gradient_cost_volume(l_dev, r_dev, num_d))
+        maps, rows = {}, {}
+        for kind in HPD_KINDS:
+            run = lambda kind=kind: hpd_filter(kind, nodes, plans[kind])  # noqa: E731
+            prof = device_profile(run, 2, lambda name: "filter")
+            maps[kind] = map_of(kind, l_dev, r_dev, plans[kind])
+            d_want += 1
+            rows[kind] = {
+                "plan_build_ms": build_ms["coded" if kind == "coded_assoc" else kind],
+                "plan_nbytes": plans[kind].transport_nbytes,
+                "filter_ms_by_events": cuda_ms(run, 3, warmups=1),
+                "launches_per_call": ratio(prof.get("device_kernels"), prof.get("calls", 1)),
+                "busy_ms_per_call": ratio(prof.get("busy_ms"), prof.get("calls", 1)),
+                "idle_share": prof.get("idle_share"),
+                "map_equal_to_stride_share": float((maps[kind] == maps["stride"]).float().mean()),
+                "within_one_level_share": within_one(
+                    st._scale_u8(maps[kind], cfg.disparity_scale), truth, cfg),
+            }
+        if any(r["map_equal_to_stride_share"] < 0.99 or r["within_one_level_share"] < 0.5
+               for r in rows.values()):
+            raise AssertionError(f"a formulation's map is far from the stride map: {rows}")
+        log("21-hpd-filters", shape=[*ST_HW, num_d], nodes=ST_HW[0] * ST_HW[1],
+            positions={k: (plans[k].total_pos if hasattr(plans[k], "total_pos") else
+                           sum(r.num_nodes for r in plans[k].rounds_meta)) for k in HPD_KINDS},
+            rounds={k: (len(plans[k].buckets) if k == "stride" else len(plans[k].rounds_meta))
+                    for k in HPD_KINDS},
+            by_formulation=rows, seconds=time.perf_counter() - t_stage, ok=True)
+        del nodes, plans, maps, l_dev, r_dev
+        torch.cuda.empty_cache()
+
+        # The group paths at 720x1280 over frames of their own trees.
+        t_stage = time.perf_counter()
+        frames, truth = st_frames(ST_HW, HPD_FRAMES)
+        trees = [tree_of(lf) for lf, _ in frames]
+        t0 = time.perf_counter()
+        po = converged_plan_batch(trees, sigma)
+        coded = converged_coded_batch(trees, sigma)
+        merged = merge_plans([po.frame(g) for g in range(HPD_FRAMES)])
+        host_ms = (time.perf_counter() - t0) * 1e3
+        lb = torch.from_numpy(np.stack([lf for lf, _ in frames])).to(dev)
+        rb = torch.from_numpy(np.stack([r for _, r in frames])).to(dev)
+        po, coded, merged = po.to(dev), coded.to(dev), merged.to(dev)
+        refs = {name: torch.stack([st._st1_device(lb[g], rb[g], plans.frame(g), num_d)
+                                   for g in range(HPD_FRAMES)])
+                for name, plans in (("po", po), ("coded", coded))}
+        d_want += 2 * HPD_FRAMES
+        paths = {  # name: (call, per-frame maps it must give, D launches a call)
+            "group_po": (lambda: st._st1_device_group(lb, rb, po, num_d), "po", HPD_FRAMES),
+            "group_coded": (lambda: st._st1_device_group(lb, rb, coded, num_d), "coded",
+                            HPD_FRAMES),
+            "batched": (lambda: st._st1_device_batched(lb, rb, po, num_d), "po", 1),
+            "merged": (lambda: st._st1_device_merged(lb, rb, merged, num_d), "po", 1),
+        }
+        group_rows = {}
+        for name, (call, ref, per_call) in paths.items():
+            torch.cuda.synchronize()
+            prior = ctmf_median.LAUNCHES
+            zero_launches()
+            got = call()
+            torch.cuda.synchronize()
+            launched = all_launches()
+            if launched != dict(dict.fromkeys(launched, 0), ctmf_median=per_call):
+                raise AssertionError(f"{name} launched {launched}, not D {per_call} times")
+            ctmf_median.LAUNCHES = prior + per_call
+            if not torch.equal(got, refs[ref]):
+                share = float((got == refs[ref]).float().mean())
+                raise AssertionError(f"{name} differs from its per-frame calls ({share})")
+            prof = device_profile(call, 1, lambda n: "path")
+            group_rows[name] = {
+                "equal_to_per_frame": True, "launches_of_D_per_call": per_call,
+                "ms_per_frame_by_events": cuda_ms(call, 2, warmups=1) / HPD_FRAMES,
+                "launches_per_call": prof.get("device_kernels"),
+                "busy_ms_per_frame": ratio(prof.get("busy_ms"), HPD_FRAMES),
+                "idle_share": prof.get("idle_share")}
+            d_want += per_call * (1 + 2 + 3)  # the check, the profile, the timing
+        shares = [within_one(st._scale_u8(m, cfg.disparity_scale), truth, cfg)
+                  for m in refs["po"]]
+        log("21-hpd-group-paths", shape=[HPD_FRAMES, *ST_HW, num_d],
+            host_plan_ms={"converge_po_and_coded_and_merge": host_ms},
+            plan_nbytes={"po_stacked": po.transport_nbytes,
+                         "coded_stacked": coded.transport_nbytes,
+                         "merged": merged.transport_nbytes},
+            paths=group_rows, within_one_level_share=[min(shares), max(shares)],
+            seconds=time.perf_counter() - t_stage, ok=True)
+        del lb, rb, po, coded, merged, refs
+    torch.cuda.synchronize()
+    launches = all_launches()
+    if launches != dict(dict.fromkeys(launches, 0), ctmf_median=d_want):
+        raise AssertionError(f"phase 21 launched {launches}, not D {d_want} times")
+    held = twins.hold()
+    if "ctmf_median" not in held:
+        raise AssertionError("no launch of D in phase 21 was held to its twin")
+    log("21-hpd-phase", launches=launches, signatures_held_to_twins=held,
+        seconds=time.perf_counter() - t_phase,
+        since_start_s=time.perf_counter() - started, ok=True)
+    return {"launches": d_want}
+
+
 def main() -> int:
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2762,6 +3005,7 @@ def main() -> int:
     tiled_launches = tiled["launches"]
     processes = run_process_phase(dev, started)
     benches = run_bench_phase(dev, started)
+    hpd = run_hpd_phase(dev, started)
 
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "gpu_stereo_matching_tpu")]
@@ -2839,14 +3083,17 @@ def main() -> int:
         # 17) and so in the streaming pipelines (phase 17), once a band of a
         # tiled, sharded or banded ST-1 frame and three times a band of an
         # ST-2 one, and through the middlebury command (phase 18), and in
-        # micro and every ST bench (phase 20); ``launches`` is their sum.
+        # micro and every ST bench (phase 20), and on ST-1's paths over the
+        # heavy-path, plan-order and coded plans (phase 21); ``launches`` is
+        # their sum.
         {**bm_plus[2], "launches": (bm_plus[2]["launches"] + st1["launches"] + st2["launches"]
                                     + st2["pipeline_launches"] + tiled_launches["ctmf_median"]
-                                    + benches["ctmf_median"]),
+                                    + benches["ctmf_median"] + hpd["launches"]),
          "launches_by_path": {"bm+": bm_plus[2]["launches"], "st1": st1["launches"],
                               "st2": st2["launches"], "st_pipelines": st2["pipeline_launches"],
                               "per_band_st_and_middlebury": tiled_launches["ctmf_median"],
-                              "benches": benches["ctmf_median"]},
+                              "benches": benches["ctmf_median"],
+                              "hpd_po_coded_st1_paths": hpd["launches"]},
          "st1_map_ms_by_shape": st1["median_ms"], "st2_map_ms_by_shape": st2["median_ms"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 """The segment tree: the host builder (C++ via ctypes), the stride-bucket
-plan and filter, and the level-scan filter; see each module's docstring."""
+plan and filter, the heavy-path, plan-order and coded plans and filters,
+and the level-scan filter; see each module's docstring."""
 
 from gpu_stereo_matching_tpu_torch.tree.builder import (  # noqa: F401
     SegmentTree,

@@ -50,12 +50,15 @@ import torch
 from gpu_stereo_matching_tpu_torch.tree.builder import SegmentTree
 from gpu_stereo_matching_tpu_torch.tree.hpd import (
     _exact_lut,
+    _nbytes,
     _pow2,
     _registry_bucket_caps,
     _registry_real_rounds,
     _registry_rounds,
     _registry_scan_caps,
+    _scan_affine,
     _unpack_ints24,
+    _wrap_arrays,
     pack_ints24,
     weight_lut,
 )
@@ -151,12 +154,7 @@ class StridePlan:
     flg: "torch.Tensor | None" = None   # ((total+1)//2,) u8
 
     def __post_init__(self):
-        for name in _PLAN_ARRAYS:
-            v = getattr(self, name)
-            if isinstance(v, np.ndarray):
-                object.__setattr__(
-                    self, name, torch.from_numpy(np.ascontiguousarray(v))
-                )
+        _wrap_arrays(self, _PLAN_ARRAYS)
 
     @property
     def layout_key(self):
@@ -193,11 +191,7 @@ class StridePlan:
     @property
     def transport_nbytes(self) -> int:
         """Bytes shipped host→device per plan (all per-frame streams)."""
-        return sum(
-            t.numel() * t.element_size()
-            for t in (self.ints, self.codes, self.res, self.flg)
-            if t is not None
-        )
+        return _nbytes(self.ints, self.codes, self.res, self.flg)
 
 
 def _layout_from_heads(n: int, head_round, path_len):
@@ -640,29 +634,6 @@ def _invert_perm(perm: torch.Tensor, n: int) -> torch.Tensor:
     return out[:n]
 
 
-def _scan_affine(a, b, steps: int, reverse: bool):
-    """Per-bucket Hillis–Steele affine scan along axis 0 of (S, P, D):
-    ``b = b + a * b_shifted``, then ``a = a * a_shifted``, ``steps`` times.
-
-    Paths occupy disjoint columns, so no boundary masking is needed.
-    """
-    for k in range(steps):
-        sh = 1 << k
-        if sh >= b.shape[0]:
-            break
-        pad_a = torch.ones((sh,) + tuple(a.shape[1:]), dtype=a.dtype, device=a.device)
-        pad_b = torch.zeros((sh,) + tuple(b.shape[1:]), dtype=b.dtype, device=b.device)
-        if reverse:
-            a_sh = torch.cat([a[sh:], pad_a], dim=0)
-            b_sh = torch.cat([b[sh:], pad_b], dim=0)
-        else:
-            a_sh = torch.cat([pad_a, a[:-sh]], dim=0)
-            b_sh = torch.cat([pad_b, b[:-sh]], dim=0)
-        b = b + a * b_sh
-        a = a * a_sh
-    return b
-
-
 def tree_filter_nodes_sb(
     cost_nodes: torch.Tensor, plan: StridePlan
 ) -> torch.Tensor:
@@ -752,6 +723,7 @@ def tree_filter_nodes_sb(
             a_blk = torch.cat(
                 [w_blk[1:], torch.zeros((1, p), dtype=dt, device=dev)], dim=0
             )[:, :, None]
+            # Paths occupy disjoint columns: the scan needs no boundary mask.
             s_blk = _scan_affine(a_blk, blk, e, reverse=True)
             blocks.append((e, p, s_blk, w_blk))
             heads_t.append(w_blk[0][:, None] * s_blk[0])

@@ -1,7 +1,7 @@
 """The port's own copies of the plain-numpy host modules (configuration,
 calibration YAML, image I/O, disparity colouring, rectification maps, the
-Middlebury scenes and metrics, the Zhang toolkit, chessboard detection and
-capture I/O) give
+Middlebury scenes and metrics, the Zhang toolkit, chessboard detection,
+capture I/O and the heavy-path plan builders of ``tree/hpd.py``) give
 what the JAX package's modules give on the same inputs, so the copies
 cannot drift unseen. Only the tests import both packages."""
 
@@ -23,6 +23,7 @@ from gpu_stereo_matching_tpu_torch.io import calib_yaml as tyaml
 from gpu_stereo_matching_tpu_torch.io import images as timages
 from gpu_stereo_matching_tpu_torch.io import middlebury as tmb
 from gpu_stereo_matching_tpu_torch.io import visualize as tvis
+from tests.torch_st_helpers import fresh_registries  # noqa: F401
 
 
 def _calibration(module, distorted=True):
@@ -254,3 +255,62 @@ def test_capture_sources_agree(tmp_path):
     for module in (tcap, jcap):
         with pytest.raises(RuntimeError, match="camera"):
             next(module.CameraSource(90, 91, num_frames=1).frames())
+
+
+def _hpd_trees(n, h, w):
+    """``n`` segment trees of random grids, as the port's and as the JAX
+    package's ``SegmentTree`` over the same arrays."""
+    from gpu_stereo_matching_tpu.tree import builder as jb
+    from gpu_stereo_matching_tpu_torch.tree import builder as tb
+
+    out = []
+    for seed in range(n):
+        ea, _eb = tb.grid_edges(h, w)
+        weights = (np.random.default_rng(seed).random(len(ea)) * 60).astype(np.float32)
+        tree = tb.build_segment_tree(weights, h, w, tau=100.0, min_size=6, penalty=5.0)
+        out.append((tree, jb.SegmentTree(**{f: getattr(tree, f) for f in (
+            "height", "width", "bfs_order", "parent", "parent_dist", "level_of",
+            "level_start", "dfs_order", "subtree_size")})))
+    return out
+
+
+@pytest.mark.parametrize("hw", [(9, 12), (1, 17)])
+def test_hpd_host_builders_agree(fresh_registries, hw):
+    """``tree/hpd.py``'s host functions, each on the same inputs in both
+    packages: ``_packed_arrays_numpy``, ``_plan_order_from_packed`` over the
+    packed arrays it gave, ``code_plan`` over that plan."""
+    from gpu_stereo_matching_tpu.tree import hpd as jh
+    from gpu_stereo_matching_tpu_torch.tree import hpd as th
+
+    (tree, jtree), = _hpd_trees(1, *hw)
+    caps, ints, floats = th._packed_arrays_numpy(tree, 0.1)
+    jcaps, jints, jfloats = jh._packed_arrays_numpy(jtree, 0.1)
+    assert [tuple(c) for c in caps] == [tuple(c) for c in jcaps]
+    np.testing.assert_array_equal(ints, jints)
+    np.testing.assert_array_equal(floats, jfloats)
+    plan = th._plan_order_from_packed(tree.num_nodes, caps, ints, floats)
+    jplan = jh._plan_order_from_packed(jtree.num_nodes, jcaps, jints, jfloats)
+    assert (plan.total_pos, plan.rounds_meta) == (jplan.total_pos, jplan.rounds_meta)
+    np.testing.assert_array_equal(plan.ints.numpy(), jplan.ints)
+    np.testing.assert_array_equal(plan.floats.numpy(), jplan.floats)
+    coded = th.code_plan(plan, tree, 0.1)
+    jcoded = jh.code_plan(jplan, jtree, 0.1, device=False)
+    assert coded.layout_key == jcoded.layout_key
+    for name in ("ints", "codes", "table"):
+        np.testing.assert_array_equal(getattr(coded, name).numpy(), getattr(jcoded, name))
+
+
+@pytest.mark.parametrize("b", [2, 3])
+def test_merge_plans_agrees(fresh_registries, b):
+    from gpu_stereo_matching_tpu.tree import hpd as jh
+    from gpu_stereo_matching_tpu_torch.tree import hpd as th
+
+    trees = _hpd_trees(b, 10, 13)
+    th.converged_plan_batch([t for t, _ in trees], 0.1)
+    jh.converged_plan_batch([j for _, j in trees], 0.1)
+    ours = th.merge_plans([th.PlanOrderPlan.from_tree(t, 0.1) for t, _ in trees])
+    theirs = jh.merge_plans([jh.PlanOrderPlan.from_tree(j, 0.1, device=False) for _, j in trees])
+    assert (ours.num_nodes, ours.total_pos, ours.rounds_meta) == (
+        theirs.num_nodes, theirs.total_pos, theirs.rounds_meta)
+    np.testing.assert_array_equal(ours.ints.numpy(), theirs.ints)
+    np.testing.assert_array_equal(ours.floats.numpy(), theirs.floats)

@@ -1,9 +1,13 @@
 """Import guard: every module of the port, and ``chip_smoke.py``, loads
-without importing jax or anything of the JAX package."""
+without importing jax or anything of the JAX package; and the port's
+``tree/hpd.py`` and ``models/segment_tree.py`` define what the JAX
+package's do."""
 
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -130,3 +134,29 @@ def test_the_check_catches_the_jax_package():
         cwd=ROOT, capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode != 0 and "gpu_stereo_matching_tpu" in proc.stderr
+
+
+def _definitions(path: Path) -> set:
+    """Names a module defines at its top level (functions, classes and
+    assignments), read from its source without importing it."""
+    import ast
+
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) else [node.target]
+            names |= {t.id for t in targets if isinstance(t, ast.Name)}
+    return names
+
+
+@pytest.mark.parametrize("rel", ["tree/hpd.py", "models/segment_tree.py"])
+def test_port_defines_what_the_jax_module_defines(rel):
+    """Every definition of the JAX module has its namesake in the port's:
+    ``tree/hpd.py`` whole, ``models/segment_tree.py``'s device paths; the
+    port keeps no ``jax.jit`` wrappers (names ending in ``_jit``)."""
+    theirs = _definitions(ROOT / "gpu_stereo_matching_tpu" / rel)
+    ours = _definitions(ROOT / "gpu_stereo_matching_tpu_torch" / rel)
+    missing = {n for n in theirs - ours if not n.endswith("_jit")}
+    assert not missing, sorted(missing)
