@@ -14,7 +14,9 @@ color+depth weights (stable pixels only) at the user σ → filter → WTA →
 median → ×scale.
 
 The trees are built on the host (C++, ``tree/builder.py``) and emitted as
-stride-bucket plans (``tree/stride.py``); the plans are uploaded and every
+stride-bucket plans (``tree/stride.py``); the heavy-path, plan-order and
+coded plans of ``tree/hpd.py`` drive the same device paths (the plan-order
+plan also the whole-group and merged-forest paths). The plans are uploaded and every
 dense stage (cost, filter, WTA, median) runs on the device: the filter and
 the rest as plain torch, the median as kernel D (``kernels/ctmf_median.py``)
 on a CUDA tensor. The entry points run on the card unless the caller passes
@@ -44,6 +46,16 @@ from gpu_stereo_matching_tpu_torch.tree.builder import (
     color_edge_weights,
 )
 from gpu_stereo_matching_tpu_torch.tree.filter import tree_filter_nodes
+from gpu_stereo_matching_tpu_torch.tree.hpd import (
+    CodedPlan,
+    HeavyPathPlan,
+    PlanOrderPlan,
+    tree_filter_nodes_hpd,
+    tree_filter_nodes_po,
+    tree_filter_nodes_po_batched,
+    tree_filter_nodes_po_coded,
+    tree_filter_nodes_po_merged,
+)
 from gpu_stereo_matching_tpu_torch.tree.stride import (
     StridePlan,
     converged_stride_batch,
@@ -56,16 +68,34 @@ def _to_nodes(cost: torch.Tensor) -> torch.Tensor:
     return cost.movedim(0, -1).reshape(h * w, d)
 
 
+def _filter(cost_nodes, plan) -> torch.Tensor:
+    """(N, D) costs filtered over ``plan``'s tree, by the plan's type: a
+    :class:`StridePlan`, :class:`CodedPlan`, :class:`PlanOrderPlan`,
+    :class:`HeavyPathPlan` or a ``TreeFilterPlan``."""
+    if isinstance(plan, StridePlan):
+        return tree_filter_nodes_sb(cost_nodes, plan)
+    if isinstance(plan, CodedPlan):
+        # The JAX package measured reduce="argmin" (WTA before the inverse
+        # permutation) slower on its TPU, so this path, as that one, takes
+        # the filtered volume.
+        return tree_filter_nodes_po_coded(cost_nodes, plan)
+    if isinstance(plan, PlanOrderPlan):
+        return tree_filter_nodes_po(cost_nodes, plan)
+    if isinstance(plan, HeavyPathPlan):
+        return tree_filter_nodes_hpd(cost_nodes, plan)
+    return tree_filter_nodes(cost_nodes, plan)
+
+
+def _wta_median(filtered, shape_hw: Tuple[int, int]) -> torch.Tensor:
+    """(..., N, D) filtered costs → median-filtered uint8 (..., H, W)."""
+    disp = wta_disparity(filtered, dim=-1).reshape(*filtered.shape[:-2], *shape_hw)
+    return median_filter_u8(disp.to(torch.uint8), 3)
+
+
 def _filter_wta_median(cost_nodes, plan, shape_hw: Tuple[int, int]) -> torch.Tensor:
     """(N, D) costs → median-filtered uint8 disparity (H, W), on the plan's
-    device. ``plan`` is a :class:`StridePlan` or a ``TreeFilterPlan``."""
-    h, w = shape_hw
-    if isinstance(plan, StridePlan):
-        filtered = tree_filter_nodes_sb(cost_nodes, plan)
-    else:
-        filtered = tree_filter_nodes(cost_nodes, plan)
-    disp = wta_disparity(filtered, dim=1).reshape(h, w)
-    return median_filter_u8(disp.to(torch.uint8), 3)
+    device, over any plan :func:`_filter` takes."""
+    return _wta_median(_filter(cost_nodes, plan), shape_hw)
 
 
 def _st1_device(left_bgr, right_bgr, plan, num_disp: int) -> torch.Tensor:
@@ -73,6 +103,42 @@ def _st1_device(left_bgr, right_bgr, plan, num_disp: int) -> torch.Tensor:
     cost = color_gradient_cost_volume(left_bgr, right_bgr, num_disp)
     d, h, w = cost.shape
     return _filter_wta_median(_to_nodes(cost), plan, (h, w))
+
+
+def _group_nodes(left_b, right_b, num_disp: int) -> torch.Tensor:
+    """(B, H, W, 3) pairs → (B, H·W, D) node-major costs in one cost call
+    (the cost's ops are elementwise or over the colour channels, so a
+    frame's costs do not depend on the batch)."""
+    cost = color_gradient_cost_volume(left_b, right_b, num_disp)  # (D, B, H, W)
+    d, b, h, w = cost.shape
+    return cost.permute(1, 2, 3, 0).reshape(b, h * w, d)
+
+
+def _st1_device_batched(left_b, right_b, plans, num_disp: int) -> torch.Tensor:
+    """A whole frame group at once: (B, H, W, 3) pairs and a B-stacked
+    :class:`PlanOrderPlan` → (B, H, W) uint8, on the inputs' device.
+
+    The counterpart of the JAX function's ``vmap``: the cost, the filter's
+    gathers and scans, the WTA and the median each cover the group in one
+    op (kernel D launches once for the group). Each frame equals
+    :func:`_st1_device` on its own plan, bit for bit. Only the plan-order
+    plan batches: it is the one formulation without a scatter.
+    """
+    if not isinstance(plans, PlanOrderPlan):
+        raise TypeError(f"expected a stacked PlanOrderPlan, got {type(plans).__name__}")
+    filtered = tree_filter_nodes_po_batched(_group_nodes(left_b, right_b, num_disp), plans)
+    return _wta_median(filtered, tuple(left_b.shape[1:3]))
+
+
+def _st1_device_merged(left_b, right_b, merged_plan, num_disp: int) -> torch.Tensor:
+    """A frame group through one merged forest plan
+    (:func:`tree.hpd.merge_plans` of B frames' plan-order plans): the
+    single-frame filter over (B·N, D) costs, then WTA and the median over
+    the group → (B, H, W) uint8, on the inputs' device. For a power-of-two
+    B each frame equals :func:`_st1_device` on its own plan, bit for bit.
+    """
+    filtered = tree_filter_nodes_po_merged(_group_nodes(left_b, right_b, num_disp), merged_plan)
+    return _wta_median(filtered, tuple(left_b.shape[1:3]))
 
 
 def _equal_bands(x, num_bands: int, dim: int = 0) -> List:
@@ -89,26 +155,36 @@ def _equal_bands(x, num_bands: int, dim: int = 0) -> List:
 
 
 def _st1_device_group(left_b, right_b, plans, num_disp: int) -> torch.Tensor:
-    """A frame group: (B, H, W, 3) pairs and a B-stacked :class:`StridePlan`
-    → (B, H, W) uint8 median-filtered disparities, one frame after another
-    on the inputs' device: the one-band case of
-    :func:`_st1_device_group_banded`."""
-    return _st1_device_group_banded(left_b, right_b, plans, num_disp, 1)
+    """A frame group: (B, H, W, 3) pairs and a B-stacked :class:`StridePlan`,
+    :class:`CodedPlan` or :class:`PlanOrderPlan` → (B, H, W) uint8
+    median-filtered disparities, one frame after another on the inputs'
+    device: the one-band case of :func:`_st1_device_group_banded`'s loop."""
+    if not isinstance(plans, (StridePlan, CodedPlan, PlanOrderPlan)):
+        raise TypeError(f"expected a stacked StridePlan, CodedPlan or PlanOrderPlan, "
+                        f"got {type(plans).__name__}")
+    return _st1_frames_banded(left_b, right_b, plans, num_disp, 1)
 
 
 def _st1_device_group_banded(left_b, right_b, plans, num_disp: int, num_bands: int) -> torch.Tensor:
     """A frame group with per-band trees: (B, H, W, 3) pairs and a
     (B·num_bands)-stacked :class:`StridePlan`, frame g's band t at index
-    g·num_bands + t → (B, H, W) uint8, on the inputs' device.
-
-    Per frame: one full-frame cost volume, cut into ``num_bands`` equal
-    bands (the cost has no vertical taps, so a band's slice is the cost of
-    its crop, bit for bit); each band runs filter → WTA → 7×7 median on its
-    own tree, and the bands are concatenated. Equal to
+    g·num_bands + t → (B, H, W) uint8, on the inputs' device. Equal to
     ``models.segment_tree_tiled.st1_disparity_tiled`` with equal bands.
     """
     if not isinstance(plans, StridePlan):
         raise TypeError(f"expected a stacked StridePlan, got {type(plans).__name__}")
+    return _st1_frames_banded(left_b, right_b, plans, num_disp, num_bands)
+
+
+def _st1_frames_banded(left_b, right_b, plans, num_disp: int, num_bands: int) -> torch.Tensor:
+    """The group loop of :func:`_st1_device_group` and
+    :func:`_st1_device_group_banded`, over any stacked plan with ``.frame``.
+
+    Per frame: one full-frame cost volume, cut into ``num_bands`` equal
+    bands (the cost has no vertical taps, so a band's slice is the cost of
+    its crop, bit for bit); each band runs filter → WTA → 7×7 median on its
+    own tree, and the bands are concatenated.
+    """
     outs = []
     for g in range(left_b.shape[0]):
         cost = color_gradient_cost_volume(left_b[g], right_b[g], num_disp)

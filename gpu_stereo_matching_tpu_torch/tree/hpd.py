@@ -63,11 +63,6 @@ _REGISTRY_LOADED = False
 _REGISTRY_LOCK = threading.Lock()
 
 
-def _registry_lock() -> threading.Lock:
-    """The one lock around every registry read-merge-write."""
-    return _REGISTRY_LOCK
-
-
 def _registry_file():
     global _REGISTRY_PATH
     if _REGISTRY_PATH is None:
@@ -151,7 +146,7 @@ def _pow2(x: int) -> int:
 
 def _registry_caps(n: int, padded_rounds: int, needed):
     """Merge per-round sizes into the persisted layout registry → caps."""
-    with _registry_lock():
+    with _REGISTRY_LOCK:
         _registry_load()
         reg_key = (n, padded_rounds)
         caps = _LAYOUT_REGISTRY.get(reg_key)
@@ -175,7 +170,7 @@ def _registry_caps(n: int, padded_rounds: int, needed):
 
 def _registry_caps_k(n: int, padded_rounds: int, needed):
     """Merge per-round light-slot counts (plan-order layout) → caps."""
-    with _registry_lock():
+    with _REGISTRY_LOCK:
         _registry_load()
         key = (n, padded_rounds)
         caps = _K_REGISTRY.get(key)
@@ -193,7 +188,7 @@ def _registry_caps_k(n: int, padded_rounds: int, needed):
 def _registry_scan_caps(n: int, padded_rounds: int, needed):
     """Merge per-round max-path-length pow2 caps (doubling-scan step
     counts) into the persisted registry: elementwise max, monotone."""
-    with _registry_lock():
+    with _REGISTRY_LOCK:
         _registry_load()
         key = (n, padded_rounds)
         caps = _SCAN_REGISTRY.get(key)
@@ -217,7 +212,7 @@ def _registry_bucket_caps(n: int, padded_rounds: int, needed):
     with ragged extension: monotone, so frame layouts converge to one
     static shape per (N, rounds) key.
     """
-    with _registry_lock():
+    with _REGISTRY_LOCK:
         _registry_load()
         key = (n, padded_rounds)
         caps = _BUCKET_REGISTRY.get(key)
@@ -245,7 +240,7 @@ def _registry_bucket_caps(n: int, padded_rounds: int, needed):
 
 def _registry_real_rounds(n: int, padded_rounds: int, needed: int) -> int:
     """Converge the number of non-dummy rounds (monotone max per layout)."""
-    with _registry_lock():
+    with _REGISTRY_LOCK:
         _registry_load()
         key = (n, padded_rounds)
         cur = _REAL_ROUNDS_REGISTRY.get(key, 0)
@@ -264,7 +259,7 @@ def _registry_rounds(n: int, needed: int) -> int:
     shape, and plans could not be stacked. The registry makes round padding
     monotone per N, like the per-round caps.
     """
-    with _registry_lock():
+    with _REGISTRY_LOCK:
         _registry_load()
         cur = _ROUNDS_REGISTRY.get(n, 0)
         if needed > cur:
@@ -318,12 +313,6 @@ def _scan_affine(a, b, steps: int, reverse: bool):
         b = b + a * b_sh
         a = a * a_sh
     return b
-
-
-def _seg_scan(a, b, steps: int, reverse: bool = False):
-    """The coded filter's doubling scan: :func:`_scan_affine` on (L, 1) and
-    (L, D) operands."""
-    return _scan_affine(a, b, steps, reverse)
 
 
 def _combine(u, v):
@@ -1342,7 +1331,7 @@ def tree_filter_nodes_po_coded(
     With ``assoc_scan=True`` the per-round scans are JAX's associative scan
     (:func:`_assoc_scan`) and the result is bit-identical to
     :func:`tree_filter_nodes_po` on the equivalent uncoded plan. The
-    default uses :func:`_seg_scan` doubling with the plan's static
+    default uses :func:`_scan_affine` doubling with the plan's static
     per-round step caps; summation order inside a path differs, so results
     match the oracle to float tolerance rather than bitwise.
 
@@ -1388,7 +1377,7 @@ def tree_filter_nodes_po_coded(
         if assoc_scan:
             s = _assoc_scan(a, b, reverse=True)
         else:
-            s = _seg_scan(a, b, st, reverse=True)
+            s = _scan_affine(a, b, st, reverse=True)
         s_buf[off : off + l] = s
         ws_buf[off : off + l] = w[off : off + l][:, None] * s
 
@@ -1401,7 +1390,7 @@ def tree_filter_nodes_po_coded(
         if assoc_scan:
             f = _assoc_scan(a, b)
         else:
-            f = _seg_scan(a, b, st)
+            f = _scan_affine(a, b, st, reverse=False)
         f_buf[off : off + l] = f
 
     if reduce == "argmin":

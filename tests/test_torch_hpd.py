@@ -373,7 +373,7 @@ def test_seg_scan_is_the_stride_scan_and_matches_jax():
     a[::16] = 0.0
     b = rng.standard_normal((96, 4)).astype(np.float32)
     for reverse in (False, True):
-        got = th._seg_scan(torch.from_numpy(a), torch.from_numpy(b), 4, reverse).numpy()
+        got = th._scan_affine(torch.from_numpy(a), torch.from_numpy(b), 4, reverse).numpy()
         with jax.disable_jit():
             want = np.asarray(jh._seg_scan(jnp.asarray(a), jnp.asarray(b), 4, reverse))
         np.testing.assert_array_equal(got, want)

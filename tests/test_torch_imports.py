@@ -151,12 +151,19 @@ def _definitions(path: Path) -> set:
     return names
 
 
+# JAX names whose work the port does another way: the registry lock is
+# made at import (``_REGISTRY_LOCK``), not lazily, and the coded filter's
+# doubling scan is ``tree/hpd.py::_scan_affine``, the stride filter's.
+_DONE_OTHERWISE = {"_registry_lock", "_seg_scan"}
+
+
 @pytest.mark.parametrize("rel", ["tree/hpd.py", "models/segment_tree.py"])
 def test_port_defines_what_the_jax_module_defines(rel):
     """Every definition of the JAX module has its namesake in the port's:
     ``tree/hpd.py`` whole, ``models/segment_tree.py``'s device paths; the
-    port keeps no ``jax.jit`` wrappers (names ending in ``_jit``)."""
+    port keeps no ``jax.jit`` wrappers (names ending in ``_jit``), and the
+    names in ``_DONE_OTHERWISE`` do their work under another name."""
     theirs = _definitions(ROOT / "gpu_stereo_matching_tpu" / rel)
     ours = _definitions(ROOT / "gpu_stereo_matching_tpu_torch" / rel)
-    missing = {n for n in theirs - ours if not n.endswith("_jit")}
+    missing = {n for n in theirs - ours - _DONE_OTHERWISE if not n.endswith("_jit")}
     assert not missing, sorted(missing)
