@@ -230,7 +230,25 @@ Phases, each printing its own line:
    by events with its launches a call. Every launch of D in the phase is
    counted against its loop counts and held, at each new signature, to
    its twin. To run it alone: ``run_hpd_phase(torch.device("cuda:0"),
-   time.perf_counter())`` after the builds of phase 20.
+   time.perf_counter())`` after the builds of phase 20;
+22. kernel A1's ``mxu=True`` entry, the tensor-core body of
+   ``csrc/sad_wta_mma.cu``: on the packed-pair cases of ``EDGE_CASES`` and
+   ``STRUCTURED_CASES`` at B = 1, ``MMA_EXTRA_CASES`` (D = W, D = 256, W = 9)
+   and 1080x1920 D=64 r=5, random and structured, each launch equal bit for
+   bit to its plain twin and to the strip body and counted; the entry once
+   at 1080p with every counter at 0 just before and only its own launch
+   after; timed by events in turns with the strip body (mma, strip, strip,
+   mma), a lone call and a call of a burst of 20, both by device time under
+   ``torch.profiler``, and at r = 1, 3, 5, with the launch plan, the IMMA
+   instructions of each radius's body in the SASS, and the tensor-core
+   share (the operations its products issue, band zeros included, over
+   1,979e12 a second, in the burst's time a call). To run it
+   alone: ``run_mma_phase(torch.device("cuda:0"), u8)`` after
+   ``_build.load_library()``, ``u8(shape)`` giving random uint8 tensors on
+   the card (about 10 s, 21 s with the build).
+
+A ``seconds-by-phase`` line gives each phase's seconds, from the end of the
+one before.
 
 Each kernel's entry of the summary line carries its bound
 (``bench/roofline.py``): the least time the card could take, the larger of
@@ -253,6 +271,7 @@ import contextlib
 import functools
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -488,6 +507,7 @@ def run_bm_plus_phases(dev, u8, calib) -> list:
         return 0
 
     # 8. Split-phase kernels vs their twins.
+    t_phase = time.perf_counter()
     err_e1 = err_e2 = 0
     right_views = 0
     bodies = {"strips": 0, "general": 0}
@@ -521,7 +541,8 @@ def run_bm_plus_phases(dev, u8, calib) -> list:
                 structured += 1
     if not all(bodies.values()) or split_phase.volume_kernel_body(64, 5) != "strips":
         raise AssertionError(f"phase 8 must cover both bodies, (64, 5) on strips: {bodies}")
-    log("8-split-phase-vs-twin", cases=len(EDGE_CASES) + 1 + len(MIDDLEBURY_BM_CASES) + structured,
+    log("8-split-phase-vs-twin", seconds=time.perf_counter() - t_phase,
+        cases=len(EDGE_CASES) + 1 + len(MIDDLEBURY_BM_CASES) + structured,
         structured_cases=structured, cases_by_body=bodies,
         body_of_64_5=split_phase.volume_kernel_body(64, 5),
         right_views_with_int32_max=right_views,
@@ -579,7 +600,8 @@ def run_bm_plus_phases(dev, u8, calib) -> list:
     if not all(bodies.values()) or plan_1080_r3["body"] != "rank_select":
         raise AssertionError(f"phase 9 must cover both bodies, r=3 at 1080p on rank select: "
                              f"{bodies}, {plan_1080_r3}")
-    log("9-median-vs-twin", cases=cases, structured_cases=structured, cases_by_body=bodies,
+    log("9-median-vs-twin", seconds=time.perf_counter() - t_phase,
+        cases=cases, structured_cases=structured, cases_by_body=bodies,
         rank_select_radii=[1, small], body_of_1080p_r3=plan_1080_r3["body"], max_abs_err=err_d,
         ok=True)
 
@@ -664,7 +686,8 @@ def run_bm_plus_phases(dev, u8, calib) -> list:
     if cli_hit < 0.9:
         raise AssertionError(f"bm CLI found the true disparity on only {cli_hit}")
     tmp.cleanup()
-    log("10-bm-plus-path", config=[64, 5, "lr", 1, "median", 3], pipeline_pairs=[2, 1080, 1920],
+    log("10-bm-plus-path", seconds=time.perf_counter() - t_phase,
+        config=[64, 5, "lr", 1, "median", 3], pipeline_pairs=[2, 1080, 1920],
         true_disparity_share=hits, rig=[*rig_hw], rig_process_pairs=3, rig_batch=4,
         cli=[1080, 1920], cli_true_disparity_share=cli_hit, launches_pipeline=n_pipeline,
         launches_rig=n_rig, launches_cli=n_cli, ok=True)
@@ -1034,6 +1057,8 @@ ST_HW = (720, 1280)      # ST-1's main path and its timings
 ST_CHECK_HW = (360, 640)  # the card against the port's CPU run, bit for bit
 ST_HD_HW = (1080, 1920)   # timed too while the run stays well inside its limit
 ST_HD_BEFORE_S = 700      # seconds since the start after which 1080p is left out
+# Timed calls a stage at 720p in phases 16 and 17, cut for time from 5 and 2.
+ST1_TIME_REPS, ST2_TIME_REPS = 3, 1
 ST_MAX_SHIFT = 40
 
 
@@ -1093,7 +1118,7 @@ def zero_launches() -> None:
 
     split_phase.LAUNCHES.update(sad_volume=0, wta_from_sad=0)
     ctmf_median.LAUNCHES = remap.LAUNCHES = remap.PAIR_LAUNCHES = gray.LAUNCHES = 0
-    sad_wta.LAUNCHES = sad_wta.KEY_LAUNCHES = 0
+    sad_wta.LAUNCHES = sad_wta.KEY_LAUNCHES = sad_wta.MMA_LAUNCHES = 0
 
 
 def all_launches() -> dict:
@@ -1102,6 +1127,7 @@ def all_launches() -> dict:
 
     return {**split_phase.LAUNCHES, "ctmf_median": ctmf_median.LAUNCHES,
             "sad_wta": sad_wta.LAUNCHES, "sad_wta_key": sad_wta.KEY_LAUNCHES,
+            "sad_wta_mma": sad_wta.MMA_LAUNCHES,
             "front_end": remap.PAIR_LAUNCHES, "remap_u8": remap.LAUNCHES, "gray": gray.LAUNCHES}
 
 
@@ -1216,7 +1242,7 @@ def run_st1_phase(dev, started: float) -> dict:
             log("16-st1-time", shape=[*hw, num_d], left_out="the run is past "
                 f"{ST_HD_BEFORE_S} s")
             continue
-        reps = 5 if hw == ST_HW else 3
+        reps = ST1_TIME_REPS if hw == ST_HW else 3
         left, right, truth = st_pair(hw)
         weights = color_edge_weights(left)
         tree = build_segment_tree(weights, *hw, tau=cfg.tau, min_size=cfg.min_size_seg,
@@ -1257,7 +1283,8 @@ def run_st1_phase(dev, started: float) -> dict:
             upload_ms=upload, device_ms_by_events=device,
             device_stages_sum_ms=sum(device.values()), st1_disparity_ms=whole,
             filter_profile=filter_prof, frame_profile=frame_prof,
-            within_one_level_share=within_one(st.st1_disparity(left, right, cfg), truth, cfg))
+            within_one_level_share=within_one(st.st1_disparity(left, right, cfg), truth, cfg),
+            **({"cut_for_time": {"reps": {"default": 5, "ran": reps}}} if hw == ST_HW else {}))
         del cost, nodes, filtered, disp, plan_dev, l_dev, r_dev
         torch.cuda.empty_cache()
     return {"launches": launches["ctmf_median"], "median_ms": times}
@@ -1456,7 +1483,7 @@ def run_st2_phase(dev, started: float) -> dict:
             continue
         t_stage = time.perf_counter()
         hd = hw == ST_HD_HW
-        reps = 1 if hd else 2
+        reps = 1 if hd else ST2_TIME_REPS
         left, right, truth = st_pair(hw)
         w_l, w_r = color_edge_weights(left), color_edge_weights(right)
         tree_args = dict(tau=cfg.tau, min_size=cfg.min_size_seg, penalty=cfg.penalty_cross_seg)
@@ -1498,9 +1525,9 @@ def run_st2_phase(dev, started: float) -> dict:
         device["median_D_final_map"] = cuda_ms(
             lambda: ctmf_median.median_u8(final_map, cfg.median_radius), reps)
         # The stages above built this pair's trees and plans, so the layout
-        # registry has grown for them: one call at 1080p, 2 after a warm-up
-        # at 720p (the main path's line has its accuracy), where the
-        # profiler then traces one more.
+        # registry has grown for them: one call at 1080p, ST2_TIME_REPS
+        # after a warm-up at 720p (the main path's line has its accuracy),
+        # where the profiler then traces one more.
         if hd:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1515,7 +1542,8 @@ def run_st2_phase(dev, started: float) -> dict:
         log("17-st2-time", shape=[*hw, num_d], host_ms=host, host_ms_sum=sum(host.values()),
             device_ms_by_events=device, phase1_fetch_ms=fetch_ms,
             stable_share=float(mask.mean()), st2_disparity_ms=whole, frame_profile=frame_prof,
-            within_one_level_share=accuracy, seconds=time.perf_counter() - t_stage)
+            within_one_level_share=accuracy, seconds=time.perf_counter() - t_stage,
+            **({} if hd else {"cut_for_time": {"reps": {"default": 2, "ran": reps}}}))
         del lb, rb, plans1_dev, plan2_dev, packed, cost, final_map
         torch.cuda.empty_cache()
     return {"launches": launches["ctmf_median"], "pipeline_launches": pipeline_launches,
@@ -2509,6 +2537,7 @@ def run_bench_phase(dev, started: float) -> dict:
 
 HPD_CHECK_HW = (180, 320)  # the card against the port's CPU run, bit for bit
 HPD_FRAMES = 4             # frames of the group paths at 720x1280
+HPD_BUILD_REPS = 1         # timed builds of each plan after a warm-up, cut for time from 3
 # Filter formulations on one tree: the stride filter of the main path, then
 # tree/hpd.py's heavy-path, plan-order and coded filters (the coded one
 # with both of its scans).
@@ -2637,7 +2666,7 @@ def run_hpd_phase(dev, started: float) -> dict:
             "po": lambda: PlanOrderPlan.from_tree(tree, sigma),
             "coded": lambda: CodedPlan.from_tree(tree, sigma),
         }
-        build_ms = {k: median_wall_ms(fn, 3, cpu) for k, fn in builds.items()}
+        build_ms = {k: median_wall_ms(fn, HPD_BUILD_REPS, cpu) for k, fn in builds.items()}
         plans = hpd_plans(tree, sigma, dev)
         l_dev, r_dev = torch.from_numpy(left).to(dev), torch.from_numpy(right).to(dev)
         nodes = st._to_nodes(color_gradient_cost_volume(l_dev, r_dev, num_d))
@@ -2666,7 +2695,8 @@ def run_hpd_phase(dev, started: float) -> dict:
                            sum(r.num_nodes for r in plans[k].rounds_meta)) for k in HPD_KINDS},
             rounds={k: (len(plans[k].buckets) if k == "stride" else len(plans[k].rounds_meta))
                     for k in HPD_KINDS},
-            by_formulation=rows, seconds=time.perf_counter() - t_stage, ok=True)
+            by_formulation=rows, seconds=time.perf_counter() - t_stage,
+            cut_for_time={"plan_build_reps": {"default": 3, "ran": HPD_BUILD_REPS}}, ok=True)
         del nodes, plans, maps, l_dev, r_dev
         torch.cuda.empty_cache()
 
@@ -2737,8 +2767,156 @@ def run_hpd_phase(dev, started: float) -> dict:
     return {"launches": seen["ctmf_median"]}
 
 
+# (H, W, D, r) of the tensor-core body beside the packed-pair cases of
+# EDGE_CASES and STRUCTURED_CASES: D = W (at the last d every column but the
+# last is invalid, inside every n-tile), D = W = 256 (the largest D), a
+# 9-wide image (W off 8, one n-tile of the image).
+MMA_EXTRA_CASES = [(33, 64, 64, 5), (65, 256, 256, 3), (17, 9, 2, 1)]
+MMA_TIMED_RADII = (1, 3, 5)  # 1080p D=64, bursts: the tensor-core body beside the strip body
+
+
+def run_mma_phase(dev, u8) -> dict:
+    """Phase 22: ``fused_block_matching(..., mxu=True)``, the tensor-core
+    body of ``csrc/sad_wta_mma.cu``, held bit for bit to its plain twin and
+    to the strip body on every case, its launches exact; the entry driven
+    once at 1080p with every counter at 0 just before; timed beside the
+    strip body by events and under ``torch.profiler``, with its plan and
+    its tensor-core share. Returns its entry of the summary line."""
+    from gpu_stereo_matching_tpu_torch.bench.fused_kernel import _sass
+    from gpu_stereo_matching_tpu_torch.bench.roofline import PEAK_INT8_TENSOR_OPS_PER_S
+    from gpu_stereo_matching_tpu_torch.kernels import _build, sad_wta
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 22)
+    fbm = sad_wta.fused_block_matching
+
+    def check(left, right, d, r, what):
+        before = (sad_wta.MMA_LAUNCHES, sad_wta.LAUNCHES)
+        got = fbm(left, right, d, r, mxu=True)
+        torch.cuda.synchronize()
+        if (sad_wta.MMA_LAUNCHES, sad_wta.LAUNCHES) != (before[0] + 1, before[1]):
+            raise AssertionError(f"mxu=True at {(*left.shape, d, r)} did not launch the "
+                                 f"tensor-core body once and nothing else")
+        for name, want in (("plain twin", sad_wta.fused_block_matching_mma_reference(
+                left, right, d, r)), ("strip body", fbm(left, right, d, r))):
+            if not torch.equal(got, want):
+                err = int((got - want).abs().max())
+                raise AssertionError(f"tensor-core body differs from the {name} at "
+                                     f"{(*left.shape, d, r)} ({what}): {err}")
+        return got
+
+    def packed(cases):
+        return [(h, w, d, r) for _, h, w, d, r in cases if sad_wta._packed_pair_supported(d, r)]
+
+    random_cases = packed(EDGE_CASES) + MMA_EXTRA_CASES + [(1080, 1920, 64, 5)]
+    structured_cases = packed(STRUCTURED_CASES) + [(1080, 1920, 64, 5)]
+    launches_before = sad_wta.MMA_LAUNCHES
+    for h, w, d, r in random_cases:
+        check(u8((h, w)), u8((h, w)), d, r, "random")
+    structured = 0
+    for h, w, d, r in structured_cases:
+        for kind, left, right in structured_pairs(rng, dev, (h, w)):
+            got = check(left, right, d, r, kind)
+            if kind == "constant" and bool(got.any()):
+                raise AssertionError("constant images: every d ties, the answer is 0")
+            structured += 1
+    checked = sad_wta.MMA_LAUNCHES - launches_before
+    if checked != len(random_cases) + structured:
+        raise AssertionError(f"phase 22 launched the tensor-core body {checked} times")
+    log("22-mma-vs-twins", cases=len(random_cases) + structured, structured_cases=structured,
+        shapes=[list(c) for c in random_cases + structured_cases], max_abs_err=0, ok=True)
+
+    # The entry a user calls, at the flagship shape: the tensor-core body
+    # once, no other kernel.
+    left, right = u8((1080, 1920)), u8((1080, 1920))
+    torch.cuda.synchronize()
+    zero_launches()
+    disp = fbm(left, right, 64, 5, mxu=True)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in all_launches().items() if v}
+    if launches != {"sad_wta_mma": 1}:
+        raise AssertionError(f"fused_block_matching(mxu=True) launched {launches}")
+    if tuple(disp.shape) != (1080, 1920) or int(disp.min()) < 0 or int(disp.max()) >= 64:
+        raise AssertionError("mxu=True: disparities of the wrong shape or outside [0, D)")
+    if not torch.equal(disp, sad_wta.fused_block_matching_mma_reference(left, right, 64, 5)):
+        raise AssertionError("mxu=True at 1080p differs from its plain twin")
+    log("22-mma-main-path", shape=[1080, 1920, 64, 5], launches=launches, ok=True)
+
+    # Timings, the two bodies in turns (mma, strip, strip, mma).
+    def mma():
+        return fbm(left, right, 64, 5, mxu=True)
+
+    def strips():
+        return fbm(left, right, 64, 5)
+
+    # In the same turns: a lone call, and a call of a burst of 20 back to
+    # back (the enqueue hidden behind the kernels before it), by events;
+    # device time under the profiler, which late in a long run at times sees
+    # none or only some of a window's launches: a turn takes the first of
+    # up to 3 windows that saw one kernel a call, else None.
+    ms = {"mma": [], "strips": []}
+    burst = {"mma": [], "strips": []}
+    device_turns = {"mma": [], "strips": []}
+    for name in ("mma", "strips", "strips", "mma"):
+        fn = mma if name == "mma" else strips
+        ms[name].append(cuda_ms(fn, TIME_REPS))
+        burst[name].append(cuda_ms(lambda fn=fn: [fn() for _ in range(20)], TIME_REPS) / 20)
+        seen = None
+        for _ in range(3):
+            busy, kernels = device_ms_per_call(fn)
+            if kernels == 1:
+                seen = busy
+                break
+        device_turns[name].append(seen)
+    device = {k: min((t for t in v if t is not None), default=None)
+              for k, v in device_turns.items()}
+    plain_ms = cuda_ms(lambda: sad_wta.fused_block_matching_mma_reference(left, right, 64, 5),
+                       reps=3)
+    ops = sad_wta.mma_tensor_ops((1, 1080, 1920), 64, 5)
+    t_mma = statistics.median(ms["mma"])
+    share = ops / PEAK_INT8_TENSOR_OPS_PER_S * 1e3 / statistics.median(burst["mma"])
+    by_radius = {}  # ms a call in a burst of 20
+    for r in MMA_TIMED_RADII:
+        by_radius[r] = {
+            "mma_ms": cuda_ms(lambda r=r: [fbm(left, right, 64, r, mxu=True) for _ in range(20)],
+                              TIME_REPS) / 20,
+            "strips_ms": cuda_ms(lambda r=r: [fbm(left, right, 64, r) for _ in range(20)],
+                                 TIME_REPS) / 20}
+    plan = sad_wta.mma_launch_plan((1, 1080, 1920), 64, 5, dev)
+    # The built library's SASS: every radius's tensor-core body issues IMMA.
+    functions = re.split(r"\n\s*Function : ", _sass(str(_build.build())))
+    imma = {f.split("\n", 1)[0].strip(): f.count("IMMA") for f in functions
+            if "sad_wta_mma_kernel" in f.split("\n", 1)[0]}
+    if len(imma) != 5 or not all(imma.values()):
+        raise AssertionError(f"the tensor-core bodies' SASS holds no IMMA: {imma}")
+    log("22-mma-time", shape=[1, 1080, 1920, 64, 5], ms_by_turn=ms,
+        ms_per_call_in_a_burst_of_20_by_turn=burst,
+        device_ms_by_turn=device_turns, device_ms=device,
+        plain_ms=plain_ms, plan=plan, strip_plan=sad_wta.launch_plan((1, 1080, 1920), 64, 5, dev),
+        tensor_ops=ops, tensor_core_share=share, by_radius=by_radius,
+        imma_instructions_by_body=imma,
+        seconds=time.perf_counter() - t_phase)
+    # fused_sad_work: the same function as kernel A1, so the same bound.
+    return {**kernel_entry("fused_block_matching_mxu", "sad_wta_mma.cu", "sad_wta.py:146",
+                           launches["sad_wta_mma"], 0, t_mma, plain_ms,
+                           bound(*fused_sad_work(1080, 1920, 64)), None, [1, 1080, 1920, 64, 5]),
+            "launches_by_path": {"mxu_entry": launches["sad_wta_mma"]},
+            "device_ms": device["mma"], "strip_body_ms": statistics.median(ms["strips"]),
+            "strip_body_device_ms": device["strips"],
+            "burst_ms": statistics.median(burst["mma"]),
+            "strip_body_burst_ms": statistics.median(burst["strips"]), "tensor_ops": ops,
+            "tensor_core_share": share, "plan": plan}
+
+
 def main() -> int:
     started = time.perf_counter()
+    seconds = {}  # phase -> seconds, each from the end of the one before
+    last = [started]
+
+    def lap(phase: str) -> None:
+        now = time.perf_counter()
+        seconds[phase] = now - last[0]
+        last[0] = now
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU", file=sys.stderr)
         return 1
@@ -2771,6 +2949,7 @@ def main() -> int:
     log("2-build", seconds=time.perf_counter() - t0, library=lib_path.name,
         sources=len(list(_build.CSRC.glob("*.cu"))),
         tree_library=os.path.relpath(tree_lib_path))
+    lap("1-2")
 
     rng = np.random.default_rng(SEED)
 
@@ -2808,6 +2987,7 @@ def main() -> int:
     log("3-fused-kernel-vs-twin", cases=len(EDGE_CASES) + 2 + structured,
         structured_cases=structured, cases_by_body=bodies, body_of_64_5=sad_wta.kernel_body(64, 5),
         max_abs_err=err_a, ok=True)
+    lap("3")
 
     # 4. Kernel B's two entries vs their twins: the rig's maps at 720p, then
     # ragged shapes through wild maps; cases counted per body.
@@ -2867,6 +3047,7 @@ def main() -> int:
     log("4-remap-kernel-vs-twin", rig=[*size_hw], batches=[1, 3, 8],
         ragged_cases=len(REMAP_CASES), cases_by_entry_and_body=remap_bodies,
         body_at_720p=rig_bodies.pop(), max_abs_err=0, valid_share=valid_share, ok=True)
+    lap("4")
 
     # 5. Kernel G vs the twin on the CPU over all 2**24 BGR triples, then on
     # ragged lengths and unaligned bases; the twin on the card vs the CPU.
@@ -2895,6 +3076,7 @@ def main() -> int:
         raise AssertionError(f"phase 5 must cover both bodies of the gray kernel: {gray_bodies}")
     log("5-gray-kernel-vs-twin", triples=1 << 24, conventions=2, cases_by_body=gray_bodies,
         max_abs_err=0, twin_card_equals_cpu=True, ok=True)
+    lap("5")
 
     # 6. The main path.
     pairs = [(u8((*size_hw, 3)), u8((*size_hw, 3))) for _ in range(3)]
@@ -2929,6 +3111,7 @@ def main() -> int:
     torch.cuda.synchronize()
     log("6-main-path", rig=[*size_hw, num_d, radius], process_pairs=3, batch=8,
         launches=launches, timer_frame_wait_ms=[s.seconds * 1e3 for s in timer.spans], ok=True)
+    lap("6")
 
     # 7. Timings.
     a1 = (u8((1, 1080, 1920)), u8((1, 1080, 1920)))
@@ -3002,16 +3185,28 @@ def main() -> int:
         **device_profile(lambda: rig.process_batch(lb, rb), 10, rig_part))
     del a1, img_1080, bgr_8, lb, rb, pairs, singles, batch, triples
     torch.cuda.empty_cache()
+    lap("7")
 
     bm_launches, bm_plus = run_bm_plus_phases(dev, u8, synthetic_calibration())
+    lap("8-11")
     key_kernel = run_sharded_phases(dev, u8, t_a1)
+    lap("12-15")
     st1 = run_st1_phase(dev, started)
+    lap("16")
     st2 = run_st2_phase(dev, started)
+    lap("17")
     tiled = run_tiled_phase(dev, started)
     tiled_launches = tiled["launches"]
+    lap("18")
     processes = run_process_phase(dev, started)
+    lap("19")
     benches = run_bench_phase(dev, started)
+    lap("20")
     hpd = run_hpd_phase(dev, started)
+    lap("21")
+    mma = run_mma_phase(dev, u8)
+    lap("22")
+    log("seconds-by-phase", seconds=seconds, total=time.perf_counter() - started)
 
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("jax", "jaxlib", "gpu_stereo_matching_tpu")]
@@ -3101,6 +3296,8 @@ def main() -> int:
                               "benches": benches["ctmf_median"],
                               "hpd_po_coded_st1_paths": hpd["launches"]},
          "st1_map_ms_by_shape": st1["median_ms"], "st2_map_ms_by_shape": st2["median_ms"]},
+        # A1's mxu=True entry (phase 22): the tensor-core body.
+        mma,
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -47,6 +47,7 @@ from gpu_stereo_matching_tpu_torch.bench.streaming import NUM_FRAMES as STREAMIN
 
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, data sheet
 PEAK_OPS_PER_S = 67e12      # 32-bit operations outside the tensor cores, data sheet
+PEAK_INT8_TENSOR_OPS_PER_S = 1979e12  # dense int8 tensor-core operations, data sheet
 
 
 def bound(operations: float, nbytes: float) -> dict:

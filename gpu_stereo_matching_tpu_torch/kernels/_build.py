@@ -37,6 +37,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "gsm_sad_wta_u8": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gsm_sad_wta_plan": [_I, _I, _I, _I, _I, _P],
+    "gsm_sad_wta_mma_u8": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "gsm_sad_wta_mma_plan": [_I, _I, _I, _I, _I, _P],
     "gsm_sad_key_u8": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "gsm_sad_key_plan": [_I, _I, _I, _I, _I, _I, _P],
     "gsm_remap_bilinear_u8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],

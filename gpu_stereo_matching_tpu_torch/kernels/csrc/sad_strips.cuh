@@ -1,7 +1,9 @@
 // The strip body of the block-matching kernels for Hopper (sm_90a), shared by
 // sad_wta.cu (the whole disparity range -> disparities), sad_wta_key.cu (a
 // runtime range [d_start, d_start + count) -> keys) and split_phase.cu (the
-// SAD volume itself, every disparity's plane).
+// SAD volume itself, every disparity's plane). sad_wta_mma.cu, whose
+// vertical pass runs on the tensor cores, shares its horizontal pass
+// (horizontal_pass) and its KeepMinKey policy.
 //
 // For each d of the range it computes
 //   diff(y, x)  = |L(y, x) - R(y, x - d)|, rows outside the image are 0;
@@ -157,6 +159,37 @@ struct Tile {
   uint32_t* extra;
 };
 
+// Horizontal pass of one step, after the barrier that ends its vertical
+// pass: thread tid < kHThreads slides the window sum of row `hrow` along its
+// strip of `v` (the packed sums of d0 and d1, VS words a row) and hands
+// output j's sum to `p`. Output j of the strip sums columns j..j+2R.
+template <int R, int VS, class Policy>
+__device__ __forceinline__ void horizontal_pass(const uint32_t* v, const Tile& tile, Policy& p,
+                                                int d0, int d1) {
+  constexpr int K = 2 * R + 1;
+  constexpr int NW = strip_loads(R);
+  if (tile.tid >= kHThreads) return;
+  const uint4* q = reinterpret_cast<const uint4*>(v + tile.hrow * VS + tile.strip * kStripW);
+  uint32_t w[NW * 4];
+#pragma unroll
+  for (int m = 0; m < NW; ++m) {
+    const uint4 t = q[m];
+    w[4 * m + 0] = t.x;
+    w[4 * m + 1] = t.y;
+    w[4 * m + 2] = t.z;
+    w[4 * m + 3] = t.w;
+  }
+  uint32_t s = 0;
+#pragma unroll
+  for (int j = 0; j < K; ++j) s += w[j];
+#pragma unroll
+  for (int j = 0; j < kStripW; ++j) {
+    if (j > 0) s += w[j + 2 * R] - w[j - 1];
+    p.sum(j, s, d0, d1);
+  }
+  p.end_step(tile, d0, d1);
+}
+
 // The policy that keeps, per output, the smallest key (SAD << 16) | d of the
 // range and stores `store(key)` to `out` (one frame's plane) after the loop.
 // Invalid columns cost the fused constant 255 * (2r + 1).
@@ -200,6 +233,11 @@ struct KeepMinKey {
   }
 };
 
+// What the whole-range kernels store for a pixel: the d of its smallest key.
+struct StoreDisparity {
+  __device__ __forceinline__ uint32_t operator()(uint32_t key) const { return key & 0xffff; }
+};
+
 // One block's work: the tile (blockIdx.x, blockIdx.y) of one (H, W) uint8
 // pair over the disparities d_start <= d < d_start + count, each step's
 // packed sums handed to `p`.
@@ -211,7 +249,6 @@ __device__ __forceinline__ void strip_body(const uint8_t* __restrict__ lf,
   constexpr int CW = kTileW + 2 * R;  // columns of the vertical pass
   constexpr int HQ = strip_words(R);
   constexpr int VS = strip_vstride(R);
-  constexpr int NW = strip_loads(R);
   constexpr uint32_t kInvalid = 255 * K;
 
   extern __shared__ __align__(16) unsigned char smem[];
@@ -320,28 +357,7 @@ __device__ __forceinline__ void strip_body(const uint8_t* __restrict__ lf,
       }
     }
     __syncthreads();
-    if (tid < kHThreads) {
-      // Output j of the strip sums columns j..j+2R of its row of v.
-      const uint4* q = reinterpret_cast<const uint4*>(v + tile.hrow * VS + tile.strip * kStripW);
-      uint32_t w[NW * 4];
-#pragma unroll
-      for (int m = 0; m < NW; ++m) {
-        const uint4 t = q[m];
-        w[4 * m + 0] = t.x;
-        w[4 * m + 1] = t.y;
-        w[4 * m + 2] = t.z;
-        w[4 * m + 3] = t.w;
-      }
-      uint32_t s = 0;
-#pragma unroll
-      for (int j = 0; j < K; ++j) s += w[j];
-#pragma unroll
-      for (int j = 0; j < kStripW; ++j) {
-        if (j > 0) s += w[j + 2 * R] - w[j - 1];
-        p.sum(j, s, d0, d1);
-      }
-      p.end_step(tile, d0, d1);
-    }
+    horizontal_pass<R, VS>(v, tile, p, d0, d1);
   }
   p.template finish<VS>(tile);
 }

@@ -47,11 +47,7 @@ using gsm_strips::kMaxSmem;
 using gsm_strips::kStripH;
 using gsm_strips::kStripThreads;
 using gsm_strips::kTileW;
-
-// What the strip body stores for a pixel: the d of its smallest key.
-struct StoreDisparity {
-  __device__ __forceinline__ uint32_t operator()(uint32_t key) const { return key & 0xffff; }
-};
+using gsm_strips::StoreDisparity;
 
 // ---------------------------------------------------------------------------
 // The general body: any radius up to 112, r = 0, D up to W.

@@ -19,6 +19,14 @@ general body (every other radius up to 112). The choice is made in C, from
 ``(count, total_disparities, radius)`` alone for the key kernel;
 :func:`kernel_body` and :func:`launch_plan`, :func:`key_kernel_body` and
 :func:`key_launch_plan` say which one a shape takes and how it is launched.
+
+``fused_block_matching(..., mxu=True)`` is JAX's banded matrix-unit body
+(``_packed_pair_body_mxu``): the same integers, with the vertical window sum
+as a product by a 0/1 band. On a CUDA tensor it launches the integer
+tensor-core kernel ``csrc/sad_wta_mma.cu`` (``mma.sync`` on u8); its plain
+twin, :func:`fused_block_matching_mma_reference`, takes the band product in
+float64. Like JAX's, it serves the packed-pair configurations only
+(:func:`_packed_pair_supported`).
 """
 
 from __future__ import annotations
@@ -32,23 +40,48 @@ from gpu_stereo_matching_tpu_torch.kernels import _build
 from gpu_stereo_matching_tpu_torch.ops.aggregate import box_filter_sum
 
 # Kernel launches since import (or since a caller reset them to 0): the
-# whole-range kernel and the partial-range key kernel.
+# whole-range kernel, the partial-range key kernel and the tensor-core kernel.
 LAUNCHES = 0
 KEY_LAUNCHES = 0
+MMA_LAUNCHES = 0
 
 # The general bodies' blocks are 128 or 256 threads wide, 2r + 32 of them at
 # least.
 MAX_RADIUS = 112
 
 
-def _fused_sad(li, ri, col, d: int, radius: int) -> torch.Tensor:
-    """SAD map of one disparity by the fused formula, int32 in and out."""
+def _abs_diff(li, ri, d: int) -> torch.Tensor:
+    """|L(x) - R(x - d)|, 0 where x < d."""
     w = li.shape[-1]
     diff = torch.zeros_like(li)
     diff[..., d:] = (li[..., d:] - ri[..., : w - d]).abs()
-    v = box_filter_sum(diff, radius, dims=(-2,))
+    return diff
+
+
+def _horizontal_sad(v, col, d: int, radius: int) -> torch.Tensor:
+    """The fused formula after the vertical sum ``v`` (int32): columns
+    ``x < d`` cost ``255 * (2r + 1)``, then the clipped horizontal sum."""
     v = torch.where(col < d, 255 * (2 * radius + 1), v)
     return box_filter_sum(v, radius, dims=(-1,))
+
+
+def _fused_sad(li, ri, col, d: int, radius: int) -> torch.Tensor:
+    """SAD map of one disparity by the fused formula, int32 in and out."""
+    v = box_filter_sum(_abs_diff(li, ri, d), radius, dims=(-2,))
+    return _horizontal_sad(v, col, d, radius)
+
+
+def _winner_take_all(shape, device, num_disparities: int, sad_of) -> torch.Tensor:
+    """Argmin over ``0 <= d < num_disparities`` of ``sad_of(d)`` (int32,
+    ``shape``), ties to the smallest d."""
+    best = torch.full(shape, torch.iinfo(torch.int32).max, dtype=torch.int32, device=device)
+    best_d = torch.zeros(shape, dtype=torch.int32, device=device)
+    for d in range(num_disparities):
+        sad = sad_of(d)
+        upd = sad < best
+        best = torch.where(upd, sad, best)
+        best_d = torch.where(upd, d, best_d)
+    return best_d
 
 
 def fused_block_matching_reference(
@@ -61,15 +94,69 @@ def fused_block_matching_reference(
     li = left_gray.to(torch.int32)
     ri = right_gray.to(torch.int32)
     col = torch.arange(left_gray.shape[-1], device=left_gray.device)
-    best = torch.full(li.shape, torch.iinfo(torch.int32).max, dtype=torch.int32,
-                      device=left_gray.device)
-    best_d = torch.zeros(li.shape, dtype=torch.int32, device=left_gray.device)
-    for d in range(num_disparities):
-        sad = _fused_sad(li, ri, col, d, radius)
-        upd = sad < best
-        best = torch.where(upd, sad, best)
-        best_d = torch.where(upd, d, best_d)
-    return best_d
+    return _winner_take_all(li.shape, left_gray.device, num_disparities,
+                            lambda d: _fused_sad(li, ri, col, d, radius))
+
+
+# Rows of a tile of the tensor-core kernel, and of its twin's band product.
+MMA_TILE_H = 32
+# Output columns of a tile and n-tile width of the kernel (csrc/sad_wta_mma.cu).
+MMA_TILE_W = 128
+MMA_N = 8
+
+
+def _packed_pair_supported(num_disparities: int, radius: int) -> bool:
+    """Whether the configuration is packed-pair, as JAX's function says:
+    two disparities a pass need an even count, the packed key needs ``d``
+    in 8 bits, and a 16-bit half must hold a full window of invalid costs
+    (``255 * (2r + 1)**2 < 2**15``, r = 1..5). The ``mxu`` variant takes
+    these configurations only."""
+    k = 2 * radius + 1
+    return (
+        num_disparities % 2 == 0
+        and num_disparities <= 256
+        and radius >= 1
+        and 255 * k * k < (1 << 15)
+    )
+
+
+def _banded_vertical_matrix(tile_h: int, halo_rows: int, k: int, dtype=torch.float64,
+                            device=None) -> torch.Tensor:
+    """(tile_h, halo_rows) 0/1 band: row i sums input rows [i, i + k)."""
+    ri = torch.arange(tile_h, device=device)[:, None]
+    ci = torch.arange(halo_rows, device=device)[None, :]
+    return ((ci >= ri) & (ci < ri + k)).to(dtype)
+
+
+def fused_block_matching_mma_reference(
+    left_gray: torch.Tensor,
+    right_gray: torch.Tensor,
+    num_disparities: int = 64,
+    radius: int = 5,
+) -> torch.Tensor:
+    """Plain torch twin of the tensor-core kernel: (..., H, W) uint8 ->
+    (..., H, W) int32. Per 32-row tile the vertical sum is ``band @ diff``
+    over the tile's ``32 + 2r`` halo rows (rows outside the image 0), in
+    float64, exact since every sum is at most ``255 * (2r + 1)``; then the
+    invalid columns, the horizontal sum and the argmin of
+    :func:`fused_block_matching_reference`."""
+    h, w = left_gray.shape[-2:]
+    r, dev = radius, left_gray.device
+    tiles = -(-h // MMA_TILE_H)
+    halo = MMA_TILE_H + 2 * r
+    band = _banded_vertical_matrix(MMA_TILE_H, halo, 2 * r + 1, device=dev)
+    rows = (0, 0, r, tiles * MMA_TILE_H - h + r)
+    lp = torch.nn.functional.pad(left_gray.to(torch.float64), rows)
+    rp = torch.nn.functional.pad(right_gray.to(torch.float64), rows)
+    col = torch.arange(w, device=dev)
+
+    def sad_of(d):
+        slabs = _abs_diff(lp, rp, d).unfold(-2, halo, MMA_TILE_H)  # (..., tiles, W, halo)
+        v = band @ slabs.transpose(-1, -2)                          # (..., tiles, 32, W)
+        v = v.reshape(*v.shape[:-3], tiles * MMA_TILE_H, w)[..., :h, :]
+        return _horizontal_sad(v.to(torch.int32), col, d, r)
+
+    return _winner_take_all(left_gray.shape, dev, num_disparities, sad_of)
 
 
 def _launch(left: torch.Tensor, right: torch.Tensor, num_disparities: int,
@@ -91,6 +178,26 @@ def _launch(left: torch.Tensor, right: torch.Tensor, num_disparities: int,
         )
     _build.check(lib, err, "gsm_sad_wta_u8")
     LAUNCHES += 1
+    return out
+
+
+def _launch_mma(left: torch.Tensor, right: torch.Tensor, num_disparities: int,
+                radius: int) -> torch.Tensor:
+    global MMA_LAUNCHES
+    _build.require_cuda(left, "fused block matching (mxu)")
+    if not (left.is_contiguous() and right.is_contiguous()):
+        raise ValueError("fused block matching (mxu): inputs must be contiguous")
+    lib = _build.load_library()
+    b, h, w = left.shape
+    out = torch.empty((b, h, w), dtype=torch.int32, device=left.device)
+    with torch.cuda.device(left.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.gsm_sad_wta_mma_u8(
+            left.data_ptr(), right.data_ptr(), out.data_ptr(),
+            b, h, w, num_disparities, radius, stream,
+        )
+    _build.check(lib, err, "gsm_sad_wta_mma_u8")
+    MMA_LAUNCHES += 1
     return out
 
 
@@ -125,6 +232,23 @@ def launch_plan(shape, num_disparities: int, radius: int, device="cuda") -> dict
     return _plan("gsm_sad_wta_plan", (*shape, num_disparities, radius), device)
 
 
+def mma_launch_plan(shape, num_disparities: int, radius: int, device="cuda") -> dict:
+    """:func:`launch_plan` for the tensor-core kernel (one body, ``"mma"``)."""
+    return _plan("gsm_sad_wta_mma_plan", (*shape, num_disparities, radius), device,
+                 bodies=("mma",))
+
+
+def mma_tensor_ops(shape, num_disparities: int, radius: int) -> int:
+    """Tensor-core operations (2 a u8 multiply-add, band zeros included) that
+    the tensor-core kernel issues for a ``(B, H, W)`` batch: per block of
+    32 x 128 outputs, per disparity and per 8-column n-tile of its
+    ``128 + 2r`` columns, two m16n8k32 products."""
+    b, h, w = shape
+    blocks = b * -(-h // MMA_TILE_H) * -(-w // MMA_TILE_W)
+    ntiles = -(-(MMA_TILE_W + 2 * radius) // MMA_N)
+    return blocks * num_disparities * ntiles * 2 * (2 * 16 * MMA_N * 32)
+
+
 def key_kernel_body(count: int, total_disparities: int, radius: int) -> str:
     """Which body of the key kernel a range of ``count`` of
     ``total_disparities`` runs at ``radius``: ``"strips"`` or ``"general"``.
@@ -146,14 +270,23 @@ def fused_block_matching(
     right_gray: torch.Tensor,
     num_disparities: int = 64,
     radius: int = 5,
+    mxu: bool = False,
 ) -> torch.Tensor:
-    """Disparity of a (H, W) uint8 pair -> (H, W) int32."""
+    """Disparity of a (H, W) uint8 pair -> (H, W) int32.
+
+    ``mxu=True`` (packed-pair configurations only, else ``ValueError``)
+    computes the vertical window sum on the tensor cores
+    (``csrc/sad_wta_mma.cu``); the integers are the same."""
     check_gray_pair(left_gray, right_gray, num_disparities, "fused_block_matching")
+    if mxu and not _packed_pair_supported(num_disparities, radius):
+        raise ValueError("mxu variant requires a packed-pair config")
     if left_gray.dim() != 2:
         raise ValueError("fused_block_matching: expected (H, W); use the batched form")
     if left_gray.device.type == "cpu":
-        return fused_block_matching_reference(left_gray, right_gray, num_disparities, radius)
-    return _launch(left_gray[None], right_gray[None], num_disparities, radius)[0]
+        plain = fused_block_matching_mma_reference if mxu else fused_block_matching_reference
+        return plain(left_gray, right_gray, num_disparities, radius)
+    launch = _launch_mma if mxu else _launch
+    return launch(left_gray[None], right_gray[None], num_disparities, radius)[0]
 
 
 def fused_block_matching_batched(

@@ -107,18 +107,26 @@ def median_filter_u8(
     return (med & 0xFF).to(torch.uint8)
 
 
+# Elements of the indicator stack a pass of the histogram median holds.
+_HISTOGRAM_PASS_ELEMENTS = 1 << 25
+
+
 def _median_u8_histogram(
     x: torch.Tensor, radius: int, valid_mask: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
-    """Histogram-CDF median: 255 box sums of the indicator ``x <= v``."""
+    """Histogram-CDF median: 255 box sums of the indicator ``x <= v``, taken
+    for as many levels at once as keep a pass's stack under
+    ``_HISTOGRAM_PASS_ELEMENTS`` (one pass for a small image)."""
     h, w = x.shape[-2], x.shape[-1]
     n = _window_valid_counts((h, w), radius, valid_mask, x.device)
     valid_i = None if valid_mask is None else valid_mask.to(torch.int32)
     rank = n // 2 + 1
     med = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
-    for v in range(255):
-        le = (x <= v).to(torch.int32)
+    step = max(1, min(255, _HISTOGRAM_PASS_ELEMENTS // max(x.numel(), 1)))
+    for v0 in range(0, 255, step):
+        levels = torch.arange(v0, min(v0 + step, 255), device=x.device)
+        le = (x.unsqueeze(-3) <= levels[:, None, None]).to(torch.int32)  # (..., levels, H, W)
         if valid_i is not None:
             le = le * valid_i
-        med += box_filter_sum(le, radius) < rank
+        med += (box_filter_sum(le, radius) < rank).sum(-3, dtype=torch.int32)
     return med.to(torch.uint8)

@@ -4,6 +4,7 @@ from gpu_stereo_matching_tpu_torch.parallel.mesh import (  # noqa: F401
     DeviceMesh,
     build_mesh,
     process_mesh,
+    virtual_cpu_mesh,
     virtual_mesh,
 )
 from gpu_stereo_matching_tpu_torch.parallel.stereo import (  # noqa: F401

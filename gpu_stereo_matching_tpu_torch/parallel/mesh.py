@@ -94,6 +94,12 @@ def virtual_mesh(config: MeshConfig, device: str | torch.device = "cuda") -> Dev
     return build_mesh(config, [device] * config.num_devices)
 
 
+def virtual_cpu_mesh(config: MeshConfig) -> DeviceMesh:
+    """JAX's name for a mesh over the CPU, which tests and dry runs use:
+    :func:`virtual_mesh` with every coordinate on the CPU."""
+    return virtual_mesh(config, "cpu")
+
+
 def owner_ranks(config: MeshConfig, per_rank: int, across: str = "data") -> np.ndarray:
     """The rank that drives each coordinate when every rank drives
     ``per_rank`` of them: ranks 0, 1, ... take contiguous blocks in order,
