@@ -232,20 +232,27 @@ Phases, each printing its own line:
    its twin. To run it alone: ``run_hpd_phase(torch.device("cuda:0"),
    time.perf_counter())`` after the builds of phase 20;
 22. kernel A1's ``mxu=True`` entry, the tensor-core body of
-   ``csrc/sad_wta_mma.cu``: on the packed-pair cases of ``EDGE_CASES`` and
-   ``STRUCTURED_CASES`` at B = 1, ``MMA_EXTRA_CASES`` (D = W, D = 256, W = 9)
+   ``csrc/sad_wta_mma.cu`` (both window sums on the tensor cores): on the
+   packed-pair cases of ``EDGE_CASES`` and ``STRUCTURED_CASES`` at B = 1,
+   ``MMA_EXTRA_CASES`` (D = W, D = 256, W = 9)
    and 1080x1920 D=64 r=5, random and structured, each launch equal bit for
    bit to its plain twin and to the strip body and counted; the entry once
    at 1080p with every counter at 0 just before and only its own launch
    after; timed by events in turns with the strip body (mma, strip, strip,
    mma), a lone call and a call of a burst of 20, both by device time under
-   ``torch.profiler``, and at r = 1, 3, 5, with the launch plan, the IMMA
-   instructions of each radius's body in the SASS, and the tensor-core
-   share (the operations its products issue, band zeros included, over
-   1,979e12 a second, in the burst's time a call). To run it
-   alone: ``run_mma_phase(torch.device("cuda:0"), u8)`` after
-   ``_build.load_library()``, ``u8(shape)`` giving random uint8 tensors on
-   the card (about 10 s, 21 s with the build).
+   ``torch.profiler``, and at r = 1, 3, 5, with the launch plan; per
+   radius ptxas's registers, spills and stack (from the build's report)
+   and the dynamic shared memory at D=64; per radius from the SASS the
+   IMMA, barrier and cp.async (LDGSTS) instructions of the body and, for
+   each loop that holds an IMMA (the disparity loops), its instructions,
+   IMMA, barriers, shared stores and local loads and stores (the phase
+   fails if such a loop holds a barrier or a shared store, or a body no
+   cp.async); the tensor-core share (the operations its products issue,
+   band zeros included, over 1,979e12 a second, in the burst's time a
+   call); and the first tensor-core body's figures (``MMA_PR16``) beside
+   them. To run it alone: ``run_mma_phase(torch.device("cuda:0"), u8)``
+   after ``_build.load_library()``, ``u8(shape)`` giving random uint8
+   tensors on the card (about 30 s, 45 s with the build).
 
 A ``seconds-by-phase`` line gives each phase's seconds, from the end of the
 one before.
@@ -2773,6 +2780,50 @@ def run_hpd_phase(dev, started: float) -> dict:
 # 9-wide image (W off 8, one n-tile of the image).
 MMA_EXTRA_CASES = [(33, 64, 64, 5), (65, 256, 256, 3), (17, 9, 2, 1)]
 MMA_TIMED_RADII = (1, 3, 5)  # 1080p D=64, bursts: the tensor-core body beside the strip body
+# The first tensor-core body's figures at 1080p D=64 r=5 B=1 (its ms, the
+# lowest and highest of its runs on an H100 80GB HBM3 at 700 W), printed
+# beside this body's as the earlier figure.
+MMA_PR16 = {"device_ms": [0.0810, 0.0834], "burst_ms": [0.0856, 0.0878],
+            "tensor_core_share": 0.056, "imma_per_body": 16, "registers": 96,
+            "shared_bytes_at_d64": 52688, "threads": 160}
+
+
+def mma_sass_report() -> dict:
+    """Each radius's body of ``csrc/sad_wta_mma.cu`` in the built library's
+    SASS (``cuobjdump -sass``): its IMMA, barrier (``BAR.``) and cp.async
+    (``LDGSTS``) instructions, and each loop that holds an IMMA (a backward
+    branch and its range: the disparity loops, with and without the column
+    checks) with its instructions, IMMA, barriers, shared stores and
+    local-memory (spill) loads and stores."""
+    from gpu_stereo_matching_tpu_torch.bench.fused_kernel import _sass
+    from gpu_stereo_matching_tpu_torch.kernels import _build
+
+    def count(pattern, ops):
+        return sum(bool(re.search(pattern, op)) for op in ops)
+
+    report = {}
+    for body in re.split(r"\n\s*Function : ", _sass(str(_build.build()))):
+        name = re.search(r"sad_wta_mma_kernelILi(\d+)E", body.split("\n", 1)[0])
+        if not name:
+            continue
+        ins = re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)
+        ops = [op for _, op in ins]
+        at = {int(a, 16): i for i, (a, _) in enumerate(ins)}
+        loops = []
+        for i, op in enumerate(ops):
+            target = re.search(r"BRA.*?0x([0-9a-f]+)", op)
+            start = at.get(int(target.group(1), 16), i) if target else i
+            if start < i and count(r"\bIMMA", ops[start:i + 1]):
+                loops.append({"instructions": i - start + 1,
+                              "imma": count(r"\bIMMA", ops[start:i + 1]),
+                              "barriers": count(r"\bBAR\.", ops[start:i + 1]),
+                              "shared_stores": count(r"\bSTS\b", ops[start:i + 1]),
+                              "local_loads_and_stores": count(r"\b(LDL|STL)\b",
+                                                              ops[start:i + 1])})
+        report[int(name.group(1))] = {"imma": count(r"\bIMMA", ops),
+                                      "barriers": count(r"\bBAR\.", ops),
+                                      "ldgsts": count(r"\bLDGSTS\b", ops), "loops": loops}
+    return report
 
 
 def run_mma_phase(dev, u8) -> dict:
@@ -2782,7 +2833,6 @@ def run_mma_phase(dev, u8) -> dict:
     once at 1080p with every counter at 0 just before; timed beside the
     strip body by events and under ``torch.profiler``, with its plan and
     its tensor-core share. Returns its entry of the summary line."""
-    from gpu_stereo_matching_tpu_torch.bench.fused_kernel import _sass
     from gpu_stereo_matching_tpu_torch.bench.roofline import PEAK_INT8_TENSOR_OPS_PER_S
     from gpu_stereo_matching_tpu_torch.kernels import _build, sad_wta
 
@@ -2883,18 +2933,26 @@ def run_mma_phase(dev, u8) -> dict:
             "strips_ms": cuda_ms(lambda r=r: [fbm(left, right, 64, r) for _ in range(20)],
                                  TIME_REPS) / 20}
     plan = sad_wta.mma_launch_plan((1, 1080, 1920), 64, 5, dev)
-    # The built library's SASS: every radius's tensor-core body issues IMMA.
-    functions = re.split(r"\n\s*Function : ", _sass(str(_build.build())))
-    imma = {f.split("\n", 1)[0].strip(): f.count("IMMA") for f in functions
-            if "sad_wta_mma_kernel" in f.split("\n", 1)[0]}
-    if len(imma) != 5 or not all(imma.values()):
-        raise AssertionError(f"the tensor-core bodies' SASS holds no IMMA: {imma}")
+    # The built library's SASS and ptxas's report, per radius: both sums on
+    # the tensor cores (IMMA inside the disparity loops), cp.async staging
+    # (LDGSTS), no barrier and no shared store inside those loops.
+    sass = mma_sass_report()
+    if sorted(sass) != [1, 2, 3, 4, 5] or not all(
+            b["loops"] and b["ldgsts"] and all(
+                loop["imma"] and not loop["barriers"] and not loop["shared_stores"]
+                for loop in b["loops"]) for b in sass.values()):
+        raise AssertionError(f"the tensor-core bodies' SASS breaks the design: {sass}")
+    ptxas = {int(re.search(r"sad_wta_mma_kernelILi(\d+)E", k).group(1)): v
+             for k, v in _build.ptxas_usage("sad_wta_mma_kernel").items()}
+    for r, usage in ptxas.items():
+        usage["dynamic_smem_at_d64"] = sad_wta.mma_launch_plan(
+            (1, 1080, 1920), 64, r, dev)["shared_bytes"]
     log("22-mma-time", shape=[1, 1080, 1920, 64, 5], ms_by_turn=ms,
         ms_per_call_in_a_burst_of_20_by_turn=burst,
         device_ms_by_turn=device_turns, device_ms=device,
         plain_ms=plain_ms, plan=plan, strip_plan=sad_wta.launch_plan((1, 1080, 1920), 64, 5, dev),
         tensor_ops=ops, tensor_core_share=share, by_radius=by_radius,
-        imma_instructions_by_body=imma,
+        sass_by_radius=sass, ptxas_by_radius=ptxas, earlier=MMA_PR16,
         seconds=time.perf_counter() - t_phase)
     # fused_sad_work: the same function as kernel A1, so the same bound.
     return {**kernel_entry("fused_block_matching_mxu", "sad_wta_mma.cu", "sad_wta.py:146",

@@ -5,8 +5,10 @@ interface, at first use, into ``kernels/_build/`` (git-ignored): one
 ``nvcc -c`` per source, all started together, then one link. The file
 name carries a hash of the sources, the headers they share (``csrc/*.cuh``)
 and the flags, so an edited source or header rebuilds.
-The library is loaded with :mod:`ctypes`; each wrapper passes pointers and
-the stream as ``c_void_p``. There is no fallback: without ``nvcc``, or when
+Each compile runs ptxas verbosely; its report (registers, spills, stack and
+static shared memory per kernel) is kept beside the library, and
+:func:`ptxas_usage` reads it. The library is loaded with :mod:`ctypes`; each
+wrapper passes pointers and the stream as ``c_void_p``. There is no fallback: without ``nvcc``, or when
 the build fails, :func:`load_library` raises.
 """
 
@@ -15,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -87,6 +90,11 @@ def library_path() -> Path:
     return BUILD_DIR / f"libgsm_kernels-{h.hexdigest()[:16]}.so"
 
 
+def ptxas_log_path() -> Path:
+    """Where :func:`build` keeps ptxas's report of the library's kernels."""
+    return library_path().with_suffix(".ptxas.txt")
+
+
 def build() -> Path:
     """Compile the library if it is not built yet; return its path."""
     out = library_path()
@@ -97,7 +105,7 @@ def build() -> Path:
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objects = [os.path.join(tmp, f"{src.stem}.o") for src in _sources()]
         compiles = [
-            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
+            [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src), "-o", obj]
             for src, obj in zip(_sources(), objects)
         ]
         procs = [
@@ -114,8 +122,36 @@ def build() -> Path:
         proc = subprocess.run(link, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(link)}\n{proc.stderr}")
+        ptxas_log_path().write_text("".join(errors))
         os.replace(lib, out)
     return out
+
+
+def ptxas_usage(kernel: str) -> dict:
+    """ptxas's report, from the build, of each kernel whose mangled name
+    holds ``kernel``: mangled name -> registers, spill stores and loads
+    (bytes), stack frame (bytes) and static shared memory (bytes)."""
+    build()
+    usage, name = {}, None
+    for line in ptxas_log_path().read_text().splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            name = entry.group(1) if kernel in entry.group(1) else None
+            if name:
+                usage[name] = {"registers": 0, "spill_stores": 0, "spill_loads": 0,
+                               "stack": 0, "static_smem": 0}
+            continue
+        if name is None:
+            continue
+        for key, pattern in (("stack", r"(\d+) bytes stack frame"),
+                             ("spill_stores", r"(\d+) bytes spill stores"),
+                             ("spill_loads", r"(\d+) bytes spill loads"),
+                             ("registers", r"Used (\d+) registers"),
+                             ("static_smem", r"(\d+) bytes smem")):
+            found = re.search(pattern, line)
+            if found:
+                usage[name][key] = int(found.group(1))
+    return usage
 
 
 def load_library() -> ctypes.CDLL:

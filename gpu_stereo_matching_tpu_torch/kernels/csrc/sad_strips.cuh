@@ -2,8 +2,8 @@
 // sad_wta.cu (the whole disparity range -> disparities), sad_wta_key.cu (a
 // runtime range [d_start, d_start + count) -> keys) and split_phase.cu (the
 // SAD volume itself, every disparity's plane). sad_wta_mma.cu, whose
-// vertical pass runs on the tensor cores, shares its horizontal pass
-// (horizontal_pass) and its KeepMinKey policy.
+// window sums run on the tensor cores, shares its tile and its launch
+// helpers.
 //
 // For each d of the range it computes
 //   diff(y, x)  = |L(y, x) - R(y, x - d)|, rows outside the image are 0;
@@ -373,10 +373,11 @@ __global__ void __launch_bounds__(kStripThreads, 4) strip_kernel(
   strip_body<R>(left + frame, right + frame, H, W, d_start, count, keep);
 }
 
-// Launches `kernel`, a __global__ function around strip_body, over `grid`
-// with `smem` bytes of dynamic shared memory, or with `occupancy` only asks
-// how many of its blocks an SM holds at once.
-template <class... Params, class... Args>
+// Launches `kernel`, a __global__ function around strip_body (or another
+// body of `kThreads` threads a block), over `grid` with `smem` bytes of
+// dynamic shared memory, or with `occupancy` only asks how many of its
+// blocks an SM holds at once.
+template <int kThreads = kStripThreads, class... Params, class... Args>
 cudaError_t launch_body(void (*kernel)(Params...), size_t smem, dim3 grid, cudaStream_t stream,
                         int* occupancy, Args... args) {
   cudaError_t err =
@@ -386,8 +387,8 @@ cudaError_t launch_body(void (*kernel)(Params...), size_t smem, dim3 grid, cudaS
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   if (occupancy)
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(occupancy, kernel, kStripThreads, smem);
-  kernel<<<grid, kStripThreads, smem, stream>>>(args...);
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(occupancy, kernel, kThreads, smem);
+  kernel<<<grid, kThreads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 

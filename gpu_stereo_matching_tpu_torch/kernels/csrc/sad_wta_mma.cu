@@ -1,5 +1,5 @@
-// Fused SAD + winner-take-all block matching with the vertical window sum on
-// the integer tensor cores, for Hopper (sm_90a).
+// Fused SAD + winner-take-all block matching with both window sums on the
+// integer tensor cores, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel body _packed_pair_body_mxu of
 // gpu_stereo_matching_tpu/kernels/sad_wta.py: fused_block_matching(...,
@@ -10,37 +10,76 @@
 // configurations only: D even, 2 <= D <= 256, r = 1..5 (255 * (2r + 1)^2 <
 // 2^15).
 //
-// What bounds it: the same work as sad_wta.cu (integer sums per pixel and
-// disparity; a frame's bytes are a few microseconds of HBM time). The
-// design moves the vertical sums, half of the strip body's adds, from the
-// integer pipe to the tensor cores, and keeps the rest on CUDA cores:
+// What bounds it: the same work as sad_wta.cu, integer sums per pixel and
+// disparity (a frame's bytes are a few microseconds of HBM time). Here both
+// window sums are m16n8k32 u8 products (mma.sync, IMMA.16832.U8.U8) chained
+// in registers; no sum passes through shared memory and no barrier runs in
+// the disparity loop. What the loop issues is the bound. Per warp, pair of
+// disparities and 32 x 64 outputs at r = 5 the SASS holds 748 instructions
+// (chip_smoke.py phase 22 reads them): 104 IMMA (20 vertical and 32
+// horizontal a row half), 160 byte permutes, 60 shared loads, 60
+// __vabsdiffu4, 64 three-way minima and 293 multiply-adds (128 keys, 40
+// shifts, and register moves that line values up as operand pairs and
+// quads). The tensor cores are busy a fraction of the kernel's time. The
+// warps at the image's left and right edges run the checked loop (846
+// instructions) and finish last.
 //
-// * A block of 160 threads (5 warps) owns 32 rows by 128 output columns, as
-//   the strip body's; the vertical pass covers 128 + 2r columns in 8-column
-//   n-tiles. Both images are staged once in shared memory as 4-row words,
-//   12 a column ([column][12]: 48 staged rows, rows outside the image 0),
-//   so that a B fragment register is one word and the 32 lanes' loads of
-//   one fragment hit 32 banks.
-// * Vertical pass, per disparity and n-tile, one warp: the absolute
-//   differences are __vabsdiffu4 of a left word (kept in registers for the
-//   whole loop) and a right word, four vertically adjacent pixels of one
-//   column: the B fragment of mma.sync.m16n8k32.row.col.s32.u8.u8.s32 as it
-//   stands (b0 = K rows 4t..4t+3 of column g, b1 = K rows 16+4t..16+4t+3).
-//   A is the 16x32 0/1 band, A[i][j] = 1 for i <= j < i + 2r + 1, in four
-//   registers for the whole kernel. The tile's 32 output rows are two
-//   m-tiles whose K windows start at staged rows 0 and 16 (word-aligned),
-//   each within 32 rows since 15 + 2r < 32: two products a disparity and
-//   n-tile, three difference words. The operands are u8 (a difference
-//   reaches 255), the sums exact in s32 (at most 255 * 11).
-// * Then CUDA cores: the accumulators of d and d + 1 are packed into one
-//   word (low half d, high half d + 1), a column x < d takes the invalid
-//   constant 255 * (2r + 1) in its half, a column outside the image 0, and
-//   the words go to the strip body's double-buffered sums; after one
-//   barrier, sad_strips.cuh's horizontal pass and KeepMinKey policy finish
-//   the step. A half cannot carry: 255 * (2r + 1)^2 < 2^16.
-//
-// Plain mma.sync (warp-level, sm_80's instruction) is the first design;
-// wgmma, TMA and a redesign of the epilogue are later work.
+// * A block of 64 threads (2 warps) owns 32 rows by 128 output columns
+//   (a 1080p frame is 510 blocks, one wave at 4 blocks an SM, so no block
+//   stages a next tile); each warp owns 32 rows by 64 columns, both 16-row
+//   halves (m-tiles), and walks every disparity alone, its keys in
+//   registers (the launch bound of 4 blocks an SM leaves 255 a thread).
+// * Staging: the tile's 48 rows (32 + 2r needed, rows outside the image 0)
+//   of both images are copied with 16-byte cp.async (zero-filled outside
+//   the image) when W % 16 == 0 and both bases are 16-byte aligned, with
+//   plain loads otherwise, into a row-major raw area; then laid out once
+//   as 4-row words, 12 a column ([column][12]: the 32 lanes' loads of one
+//   B fragment hit 32 banks), a thread a column, three 16-byte stores
+//   each. Two barriers in all, both before the loop.
+// * Vertical products, per disparity and 8-column V n-tile: V = band (16 x
+//   32, A[i][k] = 1 for i <= k < i + 2r + 1, four registers for the whole
+//   kernel) * diff (32 x 8), where the B registers are __vabsdiffu4 of the
+//   lane's left words (in registers for the whole loop) and right words
+//   from shared memory. The row halves' K windows start at staged rows 0
+//   and 16 and share the middle word: three loads and differences serve
+//   both. A warp's 64 outputs need 64 + 2r V columns: 10 n-tiles at r = 5,
+//   9 below.
+// * The accumulator becomes the next A operand. Lane (g, t) holds V at rows
+//   g, g + 8 and columns 2t, 2t + 1 of each n-tile; the u8 A fragment takes
+//   rows g, g + 8 and K slots 4t..4t+3, 16+4t..16+4t+3. So from n-tiles n0,
+//   n0 + 1 the lane has four columns of each of its rows, and K slot
+//   16h + 4t + e stands for V column 8 (n0 + 2h + e / 2) + 2t + e % 2 with
+//   no shuffle. The horizontal band (32 V columns x 8 outputs, 1 where slot
+//   k's column lies in output j's window) is built with that permutation,
+//   once, in registers. K windows start at even n-tiles: output n-tiles
+//   2p and 2p + 1 both read V n-tiles 2p..2p+3 (8 + 2r <= 32 - 8), with two
+//   band constants, so one set of A registers serves two output tiles. Each
+//   pair of V n-tiles is packed into alternate halves of those registers,
+//   so output pair p reads pairs p and p + 1 where they lie: for odd p
+//   with its K halves swapped, against the band's B registers swapped.
+// * Exact products: V reaches 255 (2r + 1) = 2805, past a byte, so A is two
+//   byte planes, V's bytes 0 and 1: four PRMTs pack both planes of four
+//   values. The high byte is at most 10, so its packed word shifted left 4
+//   bits is a byte plane of 16 hi, and against the band times 16 it chains
+//   after the low plane's product in one accumulator: SAD = lo + 256 hi
+//   comes out of the second product, and the key SAD << 16 | d is one
+//   multiply-add: one shift per four V values, against a second
+//   multiply-add per key for planes kept apart (hi << 24 + lo << 16 + d).
+//   7-bit planes against bands of weight 1 and 128 would chain too, but
+//   take 4 more instructions per 4 V values to cut than the one shift.
+// * A column 0 <= x < d holds the invalid constant 255 (2r + 1) in V at
+//   every row, and a column outside the image 0. Both are set in the
+//   differences, before the vertical product: the B register of such a
+//   column is all 255 (the band's 2r + 1 ones a row then sum to the
+//   constant, the border rows included) or 0. A warp whose V columns are
+//   all inside the image and at or past D - 1 runs the loop without it;
+//   the others spend two masks, made by arithmetic shifts, and one LOP3 a
+//   B register, and no branch.
+// * Keys: a three-way unsigned minimum over (d, d + 1) per output is the
+//   whole (min, argmin) update, ties to the smallest d. The low half of
+//   the final key is the disparity; each lane stores two adjacent int32 a
+//   row and n-tile, 8 bytes, so a warp's store fills whole 32-byte sectors
+//   without a trip through shared memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -50,25 +89,31 @@
 namespace {
 
 using gsm_strips::kMaxSmem;
-using gsm_strips::kStripH;
-using gsm_strips::kStripThreads;
-using gsm_strips::kTileW;
-using gsm_strips::StoreDisparity;
 
-constexpr int kMmaMaxR = 5;          // 255 * (2r + 1)^2 < 2^15, the packed-pair rule
+constexpr int kMmaMaxR = 5;  // 255 * (2r + 1)^2 < 2^15, the packed-pair rule
 constexpr int kMmaMaxD = 256;
-constexpr int kWords = 12;           // 4-row words a staged column: 48 rows
-constexpr int kWarps = kStripThreads / 32;
+constexpr int kTileH = gsm_strips::kStripH;  // 32 rows a block
+constexpr int kTileW = gsm_strips::kTileW;   // 128 output columns a block
+constexpr int kWarpW = 64;                   // output columns of a warp
+constexpr int kThreads = 64;                 // 2 warps: column halves, 32 rows each
+constexpr int kWords = 12;                   // 4-row words a staged column
+constexpr int kRows = 4 * kWords;            // 48 staged rows
+constexpr int kVCols = kTileW + 16;          // staged left columns: the last warp's 80
+static_assert(kThreads == 32 * (kTileW / kWarpW), "one warp a 32x64 tile");
 
-// N-tiles of the vertical pass and the columns they cover.
-__host__ __device__ constexpr int mma_ntiles(int r) { return (kTileW + 2 * r + 7) / 8; }
-__host__ __device__ constexpr int mma_cols(int r) { return 8 * mma_ntiles(r); }
+// V n-tiles of a warp: 64 + 2r columns.
+__host__ __device__ constexpr int v_ntiles(int r) { return (kWarpW + 2 * r + 7) / 8; }
 
-// Dynamic shared memory of a block over D disparities: the double-buffered
-// sums, the left tile and the right tile, 12 words a column.
+// Row pitch of a raw staging area whose first word column lies `lead`
+// columns left of the tile: 16-byte chunks from floor16(x0 - lead) to
+// x0 + kVCols (x0 is a multiple of 128).
+__host__ __device__ constexpr int raw_pitch(int lead) { return kVCols + 16 * ((lead + 15) / 16); }
+
+// Dynamic shared memory of a block over D disparities: the left and right
+// words, then both raw areas.
 inline size_t mma_smem(int D, int r) {
-  return sizeof(uint32_t) * (2 * kStripH * gsm_strips::strip_vstride(r) +
-                             (size_t)kWords * (2 * mma_cols(r) + D - 1));
+  return sizeof(uint32_t) * kWords * (2 * (size_t)kVCols + D - 1) +
+         (size_t)kRows * (raw_pitch(r) + raw_pitch(r + D - 1));
 }
 
 inline bool mma_supported(int D, int r) {
@@ -76,7 +121,7 @@ inline bool mma_supported(int D, int r) {
 }
 
 // D (16x8, s32) = A (16x32, u8, row) * B (32x8, u8, col), C = 0.
-__device__ __forceinline__ void mma_u8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+__device__ __forceinline__ void mma_u8(uint32_t (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                        uint32_t b1) {
   asm("mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
@@ -84,165 +129,304 @@ __device__ __forceinline__ void mma_u8(int (&d)[4], const uint32_t (&a)[4], uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "r"(0));
 }
 
-// Byte e of the A register that holds row `row`, columns col0..col0+3 of
-// the band: 1 where row <= col0 + e < row + K.
-__device__ __forceinline__ uint32_t band_word(int row, int col0, int K) {
+// D = A * B + C, the same shape.
+__device__ __forceinline__ void mma_u8_acc(uint32_t (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                           uint32_t b1, const uint32_t (&c)[4]) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "r"(c[0]), "r"(c[1]),
+        "r"(c[2]), "r"(c[3]));
+}
+
+// Byte e of the A register that holds row `row`, K slots k0..k0+3 of the
+// vertical band: 1 where row <= k0 + e < row + 2R + 1.
+__device__ __forceinline__ uint32_t vband_word(int row, int k0, int R) {
   uint32_t w = 0;
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
-    const int j = col0 + e;
-    if (j >= row && j < row + K) w |= 1u << (8 * e);
+    const int k = k0 + e;
+    if (k >= row && k <= row + 2 * R) w |= 1u << (8 * e);
   }
   return w;
 }
 
-// Stages `cols` columns of one image as 12 words each, column col being
-// image column gx0 + col, word q packing staged rows 4q..4q+3 (staged row j
-// is image row y0 - R + j; outside the image 0).
-template <int R>
-__device__ __forceinline__ void stage_words(uint32_t* dst, const uint8_t* __restrict__ img, int H,
-                                            int W, int y0, int gx0, int cols) {
-  for (int col = threadIdx.x; col < cols; col += kStripThreads) {
-    const int gx = gx0 + col;
-    uint32_t words[kWords];
+// Byte e of the B register that holds K slots k0..k0+3 of output column j
+// (0..15 from the pair's first V column) of the horizontal band: slot k is
+// V column 16 (k / 16) + 8 ((k % 4) / 2) + 2 ((k / 4) % 4) + k % 2, and
+// output j sums V columns j..j+2R.
+__device__ __forceinline__ uint32_t hband_word(int j, int k0, int R) {
+  uint32_t w = 0;
 #pragma unroll
-    for (int q = 0; q < kWords; ++q) {
+  for (int e = 0; e < 4; ++e) {
+    const int k = k0 + e;
+    const int c = 16 * (k >> 4) + 8 * ((k & 3) >> 1) + 2 * ((k >> 2) & 3) + (k & 1);
+    if (c >= j && c <= j + 2 * R) w |= 1u << (8 * e);
+  }
+  return w;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(bytes));
+}
+
+// Raw row j of `raw` (pitch bytes) is image row gy0 + j, byte i image
+// column gx0 + i (gx0 a multiple of 16); outside the image 0.
+__device__ __forceinline__ void copy_raw(uint8_t* raw, int pitch, const uint8_t* __restrict__ img,
+                                         int H, int W, int gy0, int gx0, bool async) {
+  if (async) {
+    const int chunks = pitch / 16;
+    for (int i = threadIdx.x; i < kRows * chunks; i += kThreads) {
+      const int j = i / chunks, c = 16 * (i - j * chunks);
+      const int gy = gy0 + j, gx = gx0 + c;
+      const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;  // a chunk is all in or all out
+      cp_async16(raw + j * pitch + c, in ? img + (size_t)gy * W + gx : img, in ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kRows * pitch / 4; i += kThreads) {
+      const int j = 4 * i / pitch, c = 4 * i - j * pitch, gy = gy0 + j;
       uint32_t word = 0;
-      if (gx >= 0 && gx < W) {
+      if (gy >= 0 && gy < H) {
 #pragma unroll
         for (int b = 0; b < 4; ++b) {
-          const int gy = y0 - R + 4 * q + b;
-          if (gy >= 0 && gy < H) word |= (uint32_t)img[(size_t)gy * W + gx] << (8 * b);
+          const int gx = gx0 + c + b;
+          if (gx >= 0 && gx < W) word |= (uint32_t)img[(size_t)gy * W + gx] << (8 * b);
         }
       }
-      words[q] = word;
+      reinterpret_cast<uint32_t*>(raw)[i] = word;
     }
-    uint4* out = reinterpret_cast<uint4*>(dst + col * kWords);
+  }
+}
+
+// words[c][q] packs raw rows 4q..4q+3 of raw column off + c. A thread
+// takes a column and stores its 12 words as three 16-byte stores (the
+// 48-byte column pitch puts a quarter warp's on 32 banks).
+__device__ __forceinline__ void lay_out(uint32_t* words, int cols, const uint8_t* raw, int pitch,
+                                        int off) {
+  for (int c = threadIdx.x; c < cols; c += kThreads) {
+    const uint8_t* p = raw + off + c;
+    uint32_t w[kWords];
+#pragma unroll
+    for (int q = 0; q < kWords; ++q)
+      w[q] = (uint32_t)p[4 * q * pitch] | (uint32_t)p[(4 * q + 1) * pitch] << 8 |
+             (uint32_t)p[(4 * q + 2) * pitch] << 16 | (uint32_t)p[(4 * q + 3) * pitch] << 24;
+    uint4* dst = reinterpret_cast<uint4*>(words + c * kWords);
 #pragma unroll
     for (int m = 0; m < kWords / 4; ++m)
-      out[m] = make_uint4(words[4 * m], words[4 * m + 1], words[4 * m + 2], words[4 * m + 3]);
+      dst[m] = make_uint4(w[4 * m], w[4 * m + 1], w[4 * m + 2], w[4 * m + 3]);
   }
 }
 
-// The packed word of one column: the sums of d0 (low half) and d1 (high
-// half), the invalid constant for a disparity past the column, 0 outside
-// the image.
-__device__ __forceinline__ uint32_t pack_pair(int s0, int s1, int xc, int W, int d0, int d1,
-                                              uint32_t invalid) {
-  if (xc < 0 || xc >= W) return 0u;
-  const uint32_t lo = xc >= d0 ? (uint32_t)s0 : invalid;
-  const uint32_t hi = xc >= d1 ? (uint32_t)s1 : invalid;
-  return lo | (hi << 16);
+// Both byte planes of four V values of n-tiles n0 (a) and n0 + 1 (b), rows
+// g and g + 8, columns 2t, 2t + 1, into half `h` of the A registers of each
+// plane: lo[2h], lo[2h + 1] = the low plane of rows g, g + 8; hi[2h],
+// hi[2h + 1] = 16 times the high plane; byte e of each = K slot 4t + e.
+__device__ __forceinline__ void pack_planes(uint32_t (&lo)[4], uint32_t (&hi)[4], int h,
+                                            const uint32_t (&a)[4], const uint32_t (&b)[4]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const uint32_t ta = __byte_perm(a[2 * r], a[2 * r + 1], 0x5140);  // a0.b0 a1.b0 a0.b1 a1.b1
+    const uint32_t tb = __byte_perm(b[2 * r], b[2 * r + 1], 0x5140);
+    lo[2 * h + r] = __byte_perm(ta, tb, 0x5410);       // bytes 0
+    hi[2 * h + r] = __byte_perm(ta, tb, 0x7632) << 4;  // bytes 1 (at most 10), times 16
+  }
 }
 
-template <int R>
-__global__ void __launch_bounds__(kStripThreads, 4) sad_wta_mma_kernel(
-    const uint8_t* __restrict__ left, const uint8_t* __restrict__ right,
-    int32_t* __restrict__ out, int H, int W, int D) {
-  constexpr int K = 2 * R + 1;
-  constexpr int NT = mma_ntiles(R);
-  constexpr int CP = mma_cols(R);
-  constexpr int VS = gsm_strips::strip_vstride(R);
-  constexpr int TPW = (NT + kWarps - 1) / kWarps;  // n-tiles a warp
-  constexpr uint32_t kInvalid = 255 * K;
-  static_assert(15 + K <= 32, "an m-tile's window must fit one k32 slice");
-  static_assert(16 + 32 <= 4 * kWords, "the second m-tile's slice must be staged");
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int rw = CP + D - 1;  // staged columns of the right tile
-  uint32_t* vs = reinterpret_cast<uint32_t*>(smem);  // [2][kStripH][VS]
-  uint32_t* lt = vs + 2 * kStripH * VS;              // [CP][kWords]
-  uint32_t* rt = lt + CP * kWords;                   // [rw][kWords]
-
-  const size_t frame = (size_t)blockIdx.z * H * W;
-  const int tid = threadIdx.x;
-  const int x0 = blockIdx.x * kTileW;
-  const int y0 = blockIdx.y * kStripH;
-  // Vertical-pass column c is image column x0 - R + c (left) and, at
-  // disparity d, right staged column c + (D - 1 - d).
-  stage_words<R>(lt, left + frame, H, W, y0, x0 - R, CP);
-  stage_words<R>(rt, right + frame, H, W, y0, x0 - R - (D - 1), rw);
-
-  const int warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;  // groupID, threadID_in_group
-  const uint32_t a[4] = {band_word(g, 4 * t, K), band_word(g + 8, 4 * t, K),
-                         band_word(g, 16 + 4 * t, K), band_word(g + 8, 16 + 4 * t, K)};
-  __syncthreads();
-
-  // This lane's left words: column 8n + g of each of its warp's n-tiles,
-  // words t, 4 + t and 8 + t.
-  uint32_t lw[TPW][3];
-#pragma unroll
-  for (int i = 0; i < TPW; ++i) {
-    const int n = warp + kWarps * i;
-#pragma unroll
-    for (int m = 0; m < 3; ++m) lw[i][m] = n < NT ? lt[(8 * n + g) * kWords + 4 * m + t] : 0u;
-  }
-
-  const gsm_strips::Tile tile = {tid, x0, y0, tid % kStripH, tid / kStripH, H, W, 0, D,
-                                 vs, vs + 2 * kStripH * VS};
-  gsm_strips::KeepMinKey<StoreDisparity> keep = {StoreDisparity(), out + frame};
-  keep.begin();
-
-  int buffer = 0;
+// The disparity loop of one warp: best[mt][o][i] is the smallest key of
+// row half mt, output n-tile o, accumulator element i. `lw` are the lane's
+// left words (staged words t, 4 + t, 8 + t of each n-tile's column), `r0`
+// the right words of its first n-tile at d = 0, `hb` the horizontal band
+// ([output n-tile parity][plane weight 1, 16][B register]), `xv` the image
+// column of the warp's V column 0, `g` the lane's groupID. kChecked: some
+// n-tile may hold columns x < d or columns outside the image.
+template <int R, bool kChecked>
+__device__ __forceinline__ void match(uint32_t (&best)[2][8][4], const uint32_t (&lw)[v_ntiles(R)][3],
+                                      const uint32_t* r0, const uint32_t (&va)[4],
+                                      const uint32_t (&hb)[2][2][2], int D, int xv, int W, int g) {
+  constexpr int NV = v_ntiles(R);
+#pragma unroll 1
   for (int d0 = 0; d0 < D; d0 += 2) {
-    const int d1 = d0 + 1;
-    uint32_t* v = vs + buffer * kStripH * VS;
-    buffer ^= 1;
+    const uint32_t* rd = r0 - d0 * kWords;
+    // The A registers of each row half, disparity and plane. V pair m (n-tiles
+    // 2m, 2m + 1) is packed into half m % 2, so output pair p reads V pairs
+    // p and p + 1 in place: in K order for p even, with the K halves swapped
+    // for p odd, where the band's B registers swap too.
+    uint32_t a[2][2][2][4];  // [row half][d0, d0 + 1][plane lo, 16 hi][register]
 #pragma unroll
-    for (int i = 0; i < TPW; ++i) {
-      const int n = warp + kWarps * i;  // the same for the whole warp
-      if (n >= NT) continue;
-      // d0's right column for this lane's B column; d1's is one to the left.
-      const uint32_t* rp = rt + (8 * n + g + (D - 1 - d0)) * kWords + t;
-      uint32_t e0[3], e1[3];
+    for (int m = 0; m < 5; ++m) {
 #pragma unroll
-      for (int m = 0; m < 3; ++m) {
-        e0[m] = __vabsdiffu4(lw[i][m], rp[4 * m]);
-        e1[m] = __vabsdiffu4(lw[i][m], rp[4 * m - kWords]);
+      for (int s = 0; s < 2; ++s) {
+        uint32_t v[2][2][4];  // [row half][n-tile of the pair][element]
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const int n = 2 * m + k;
+          if (n >= NV) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) v[0][k][i] = v[1][k][i] = 0u;
+            continue;
+          }
+          const uint32_t* rp = rd + (8 * n - s) * kWords;
+          uint32_t e0 = __vabsdiffu4(lw[n][0], rp[0]);
+          uint32_t e1 = __vabsdiffu4(lw[n][1], rp[4]);
+          uint32_t e2 = __vabsdiffu4(lw[n][2], rp[8]);
+          if (kChecked) {
+            // This lane's B column xb: 255 in every K row where 0 <= xb < d,
+            // so the band makes V 255 (2r + 1) at every output row; 0 outside
+            // the image.
+            const int xb = xv + 8 * n + g;
+            const uint32_t past = (uint32_t)((xb - (d0 + s)) >> 31);
+            const uint32_t keep = ~(uint32_t)((xb | (W - 1 - xb)) >> 31);
+            e0 = (e0 | past) & keep;
+            e1 = (e1 | past) & keep;
+            e2 = (e2 | past) & keep;
+          }
+          mma_u8(v[0][k], va, e0, e1);
+          mma_u8(v[1][k], va, e1, e2);
+        }
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+          pack_planes(a[mt][s][0], a[mt][s][1], m % 2, v[mt][0], v[mt][1]);
       }
-      // Output column 8n + 2t + (k & 1), row 16 mt + g + 8 (k >> 1).
-      const int c = 8 * n + 2 * t;
-      const int xc = x0 - R + c;
+      if (m > 0) {
+        const int swap = (m - 1) % 2;
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        int s0[4], s1[4];
-        mma_u8(s0, a, e0[mt], e0[mt + 1]);
-        mma_u8(s1, a, e1[mt], e1[mt + 1]);
-        if (c + 1 < VS) {
+        for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const uint2 pair =
-                make_uint2(pack_pair(s0[2 * h], s1[2 * h], xc, W, d0, d1, kInvalid),
-                           pack_pair(s0[2 * h + 1], s1[2 * h + 1], xc + 1, W, d0, d1, kInvalid));
-            *reinterpret_cast<uint2*>(v + (16 * mt + g + 8 * h) * VS + c) = pair;
+          for (int q = 0; q < 2; ++q) {
+            uint32_t key[2][4];
+#pragma unroll
+            for (int s = 0; s < 2; ++s) {
+              uint32_t lo[4], sad[4];
+              mma_u8(lo, a[mt][s][0], hb[q][0][swap], hb[q][0][1 - swap]);
+              mma_u8_acc(sad, a[mt][s][1], hb[q][1][swap], hb[q][1][1 - swap], lo);
+#pragma unroll
+              for (int i = 0; i < 4; ++i) key[s][i] = sad[i] * 65536u + (d0 + s);
+            }
+            uint32_t (&b)[4] = best[mt][2 * (m - 1) + q];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) b[i] = __vimin3_u32(b[i], key[0][i], key[1][i]);
           }
         }
       }
     }
-    __syncthreads();
-    gsm_strips::horizontal_pass<R, VS>(v, tile, keep, d0, d1);
   }
-  keep.template finish<VS>(tile);
+}
+
+template <int R>
+__global__ void __launch_bounds__(kThreads, 4) sad_wta_mma_kernel(
+    const uint8_t* __restrict__ left, const uint8_t* __restrict__ right,
+    int32_t* __restrict__ out, int H, int W, int D, int async) {
+  constexpr int NV = v_ntiles(R);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int rcols = kVCols + D - 1;  // right word columns: V column c at d is c + D - 1 - d
+  const int lp = raw_pitch(R), rpitch = raw_pitch(R + D - 1);
+  uint32_t* lwords = reinterpret_cast<uint32_t*>(smem);                 // [kVCols][kWords]
+  uint32_t* rwords = lwords + kVCols * kWords;                          // [rcols][kWords]
+  uint8_t* lraw = reinterpret_cast<uint8_t*>(rwords + rcols * kWords);  // [kRows][lp]
+  uint8_t* rraw = lraw + kRows * lp;                                    // [kRows][rpitch]
+
+  const size_t frame = (size_t)blockIdx.z * H * W;
+  const int x0 = blockIdx.x * kTileW, y0 = blockIdx.y * kTileH;
+  // Raw column 0 is image column x0 + kVCols - pitch; word column 0 is
+  // image column x0 - R (left) and x0 - R - (D - 1) (right).
+  copy_raw(lraw, lp, left + frame, H, W, y0 - R, x0 + kVCols - lp, async);
+  copy_raw(rraw, rpitch, right + frame, H, W, y0 - R, x0 + kVCols - rpitch, async);
+  if (async) {
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 0;\n" ::);
+  }
+  __syncthreads();
+  lay_out(lwords, kVCols, lraw, lp, lp - kVCols - R);
+  lay_out(rwords, rcols, rraw, rpitch, rpitch - kVCols - R - (D - 1));
+  __syncthreads();
+
+  const int half = threadIdx.x / 32, lane = threadIdx.x % 32;  // column half
+  const int g = lane / 4, t = lane % 4;                         // groupID, threadID_in_group
+  const int xw = x0 + kWarpW * half;
+  if (xw >= W) return;
+
+  // This lane's B column is V column 8n + g of each n-tile: row half mt's
+  // K rows 4t.. and 16 + 4t.. are staged rows 16 mt + 4t.., words 4 mt + t
+  // and 4 mt + 4 + t.
+  const int word = (kWarpW * half + g) * kWords + t;
+  uint32_t lw[NV][3];
+#pragma unroll
+  for (int n = 0; n < NV; ++n)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) lw[n][j] = lwords[word + 8 * n * kWords + 4 * j];
+  const uint32_t va[4] = {vband_word(g, 4 * t, R), vband_word(g + 8, 4 * t, R),
+                          vband_word(g, 16 + 4 * t, R), vband_word(g + 8, 16 + 4 * t, R)};
+  uint32_t hb[2][2][2];
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      hb[q][0][h] = hband_word(8 * q + g, 16 * h + 4 * t, R);
+      hb[q][1][h] = 16u * hb[q][0][h];
+    }
+  uint32_t best[2][8][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int o = 0; o < 8; ++o)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) best[mt][o][i] = 0xffffffffu;
+
+  const uint32_t* r0 = rwords + word + (D - 1) * kWords;
+  const int xv = xw - R;
+  if (xv >= D - 1 && xv + 8 * NV <= W)
+    match<R, false>(best, lw, r0, va, hb, D, xv, W, g);
+  else
+    match<R, true>(best, lw, r0, va, hb, D, xv, W, g);
+
+  // Element i of output n-tile o: row 16 mt + g + 8 (i / 2), column 8o +
+  // 2t + i % 2.
+  int32_t* o_frame = out + frame;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int o = 0; o < 8; ++o) {
+      const int x = xw + 8 * o + 2 * t;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int y = y0 + 16 * mt + g + 8 * h;
+        if (y >= H || x >= W) continue;
+        const int32_t d0 = best[mt][o][2 * h] & 0xffff, d1 = best[mt][o][2 * h + 1] & 0xffff;
+        int32_t* p = o_frame + (size_t)y * W + x;
+        if (x + 1 < W && W % 2 == 0) {
+          *reinterpret_cast<int2*>(p) = make_int2(d0, d1);
+        } else {
+          p[0] = d0;
+          if (x + 1 < W) p[1] = d1;
+        }
+      }
+    }
 }
 
 // Launches the kernel for (D, r), or with `plan` launches nothing and fills
-// {body (0), tile rows, tile columns, threads, blocks, blocks per SM}.
+// {body (0), tile rows, tile columns, threads, blocks, blocks per SM, -,
+// dynamic shared bytes a block}.
 cudaError_t run(const uint8_t* l, const uint8_t* rt, int32_t* o, int B, int H, int W, int D,
                 int r, cudaStream_t s, int* plan) {
   if (B < 1 || B > 65535 || H < 1 || W < 1 || D > W || !mma_supported(D, r))
     return cudaErrorInvalidValue;
-  if (plan) gsm_strips::fill_plan(plan, false, kStripH, kTileW, kStripThreads, B, H, W);
+  if (plan) gsm_strips::fill_plan(plan, false, kTileH, kTileW, kThreads, B, H, W);
   const size_t smem = mma_smem(D, r);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  if (plan) plan[7] = (int)smem;
+  // 16-byte copies need every row's first byte 16-byte aligned.
+  const int async = W % 16 == 0 && reinterpret_cast<uintptr_t>(l) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(rt) % 16 == 0;
   return gsm_strips::for_radius(r, [&](auto radius) {
     constexpr int R = decltype(radius)::value;
     if constexpr (R > kMmaMaxR) {
       return cudaErrorInvalidValue;
     } else {
-      return gsm_strips::launch_body(sad_wta_mma_kernel<R>, smem,
-                                     gsm_strips::strip_grid(H, W, B), s,
-                                     plan ? &plan[5] : nullptr, l, rt, o, H, W, D);
+      return gsm_strips::launch_body<kThreads>(sad_wta_mma_kernel<R>, smem,
+                                               gsm_strips::strip_grid(H, W, B), s,
+                                               plan ? &plan[5] : nullptr, l, rt, o, H, W, D, async);
     }
   });
 }
@@ -251,14 +435,14 @@ cudaError_t run(const uint8_t* l, const uint8_t* rt, int32_t* o, int B, int H, i
 
 // How gsm_sad_wta_mma_u8 launches this shape on the current device: plan =
 // {body (0, the only one), tile rows, tile columns, threads, blocks, blocks
-// per SM (the occupancy query's), SMs}. Launches nothing. Returns the CUDA
-// error code.
+// per SM (the occupancy query's), SMs, dynamic shared bytes a block}.
+// Launches nothing. Returns the CUDA error code.
 extern "C" int gsm_sad_wta_mma_plan(int B, int H, int W, int D, int r, int* plan) {
   cudaError_t err = run(nullptr, nullptr, nullptr, B, H, W, D, r, nullptr, plan);
   return err != cudaSuccess ? err : gsm_strips::device_sms(&plan[6]);
 }
 
-// (B, H, W) uint8 left/right -> (B, H, W) int32 disparity, the vertical sums
+// (B, H, W) uint8 left/right -> (B, H, W) int32 disparity, both window sums
 // on the tensor cores, launched on `stream`. Returns the CUDA error code (0
 // on success); cudaErrorInvalidValue for a configuration that is not
 // packed-pair.

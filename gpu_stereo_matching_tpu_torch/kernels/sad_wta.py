@@ -23,10 +23,11 @@ general body (every other radius up to 112). The choice is made in C, from
 ``fused_block_matching(..., mxu=True)`` is JAX's banded matrix-unit body
 (``_packed_pair_body_mxu``): the same integers, with the vertical window sum
 as a product by a 0/1 band. On a CUDA tensor it launches the integer
-tensor-core kernel ``csrc/sad_wta_mma.cu`` (``mma.sync`` on u8); its plain
-twin, :func:`fused_block_matching_mma_reference`, takes the band product in
-float64. Like JAX's, it serves the packed-pair configurations only
-(:func:`_packed_pair_supported`).
+tensor-core kernel ``csrc/sad_wta_mma.cu`` (``mma.sync`` on u8), which takes
+the horizontal sum as a band product too, over V's two byte planes; its
+plain twin, :func:`fused_block_matching_mma_reference`, repeats both
+products in float64. Like JAX's, it serves the packed-pair configurations
+only (:func:`_packed_pair_supported`).
 """
 
 from __future__ import annotations
@@ -98,10 +99,13 @@ def fused_block_matching_reference(
                             lambda d: _fused_sad(li, ri, col, d, radius))
 
 
-# Rows of a tile of the tensor-core kernel, and of its twin's band product.
+# Rows of a tile and of a warp of the tensor-core kernel (csrc/sad_wta_mma.cu),
+# and of its twin's vertical band product; output columns of a warp, and of
+# its twin's horizontal band product; rows of an m16n8k32 product (a row
+# half of a warp); n-tile width.
 MMA_TILE_H = 32
-# Output columns of a tile and n-tile width of the kernel (csrc/sad_wta_mma.cu).
-MMA_TILE_W = 128
+MMA_WARP_W = 64
+MMA_M = 16
 MMA_N = 8
 
 
@@ -128,6 +132,18 @@ def _banded_vertical_matrix(tile_h: int, halo_rows: int, k: int, dtype=torch.flo
     return ((ci >= ri) & (ci < ri + k)).to(dtype)
 
 
+def _horizontal_band_product(v: torch.Tensor, band: torch.Tensor, radius: int) -> torch.Tensor:
+    """``v`` (..., H, W) summed along rows over each column's window by the
+    kernel's per-warp band product: ``64 + 2r`` columns a tile (0 outside
+    the image) times the ``(64 + 2r, 64)`` band."""
+    w = v.shape[-1]
+    tiles = -(-w // MMA_WARP_W)
+    padded = torch.nn.functional.pad(v, (radius, tiles * MMA_WARP_W - w + radius))
+    slabs = padded.unfold(-1, MMA_WARP_W + 2 * radius, MMA_WARP_W)  # (..., H, tiles, 64 + 2r)
+    out = slabs @ band                                               # (..., H, tiles, 64)
+    return out.reshape(*out.shape[:-2], tiles * MMA_WARP_W)[..., :w]
+
+
 def fused_block_matching_mma_reference(
     left_gray: torch.Tensor,
     right_gray: torch.Tensor,
@@ -135,26 +151,35 @@ def fused_block_matching_mma_reference(
     radius: int = 5,
 ) -> torch.Tensor:
     """Plain torch twin of the tensor-core kernel: (..., H, W) uint8 ->
-    (..., H, W) int32. Per 32-row tile the vertical sum is ``band @ diff``
-    over the tile's ``32 + 2r`` halo rows (rows outside the image 0), in
-    float64, exact since every sum is at most ``255 * (2r + 1)``; then the
-    invalid columns, the horizontal sum and the argmin of
+    (..., H, W) int32, by the kernel's arithmetic in float64 (exact: every
+    product and sum is an integer below 2**15). Per 32-row tile the vertical
+    sum is ``band @ diff`` over the tile's ``32 + 2r`` halo rows (rows
+    outside the image 0); the columns ``x < d`` take the invalid constant
+    ``255 * (2r + 1)``; then V's two byte planes, ``V % 256`` and ``V //
+    256``, each go through the horizontal band product of 64-column tiles,
+    and ``SAD = lo + 256 hi``; then the argmin of
     :func:`fused_block_matching_reference`."""
     h, w = left_gray.shape[-2:]
     r, dev = radius, left_gray.device
     tiles = -(-h // MMA_TILE_H)
     halo = MMA_TILE_H + 2 * r
-    band = _banded_vertical_matrix(MMA_TILE_H, halo, 2 * r + 1, device=dev)
+    vband = _banded_vertical_matrix(MMA_TILE_H, halo, 2 * r + 1, device=dev)
+    hband = _banded_vertical_matrix(MMA_WARP_W, MMA_WARP_W + 2 * r, 2 * r + 1, device=dev).T
     rows = (0, 0, r, tiles * MMA_TILE_H - h + r)
     lp = torch.nn.functional.pad(left_gray.to(torch.float64), rows)
     rp = torch.nn.functional.pad(right_gray.to(torch.float64), rows)
     col = torch.arange(w, device=dev)
+    invalid = float(255 * (2 * r + 1))
 
     def sad_of(d):
         slabs = _abs_diff(lp, rp, d).unfold(-2, halo, MMA_TILE_H)  # (..., tiles, W, halo)
-        v = band @ slabs.transpose(-1, -2)                          # (..., tiles, 32, W)
+        v = vband @ slabs.transpose(-1, -2)                         # (..., tiles, 32, W)
         v = v.reshape(*v.shape[:-3], tiles * MMA_TILE_H, w)[..., :h, :]
-        return _horizontal_sad(v.to(torch.int32), col, d, r)
+        v = torch.where(col < d, invalid, v)
+        hi = torch.div(v, 256, rounding_mode="floor")
+        lo = v - 256 * hi
+        sad = _horizontal_band_product(lo, hband, r) + 256 * _horizontal_band_product(hi, hband, r)
+        return sad.to(torch.int32)
 
     return _winner_take_all(left_gray.shape, dev, num_disparities, sad_of)
 
@@ -233,20 +258,24 @@ def launch_plan(shape, num_disparities: int, radius: int, device="cuda") -> dict
 
 
 def mma_launch_plan(shape, num_disparities: int, radius: int, device="cuda") -> dict:
-    """:func:`launch_plan` for the tensor-core kernel (one body, ``"mma"``)."""
+    """:func:`launch_plan` for the tensor-core kernel (one body, ``"mma"``),
+    with the dynamic shared memory a block takes (``shared_bytes``)."""
     return _plan("gsm_sad_wta_mma_plan", (*shape, num_disparities, radius), device,
-                 bodies=("mma",))
+                 bodies=("mma",), names=_PLAN_FIELDS + ("shared_bytes",))
 
 
 def mma_tensor_ops(shape, num_disparities: int, radius: int) -> int:
     """Tensor-core operations (2 a u8 multiply-add, band zeros included) that
-    the tensor-core kernel issues for a ``(B, H, W)`` batch: per block of
-    32 x 128 outputs, per disparity and per 8-column n-tile of its
-    ``128 + 2r`` columns, two m16n8k32 products."""
+    the tensor-core kernel issues for a ``(B, H, W)`` batch: per warp of
+    32 x 64 outputs that holds a pixel of the image, per disparity and per
+    16-row half, one m16n8k32 product per 8-column n-tile of its ``64 + 2r``
+    V columns (the vertical sum) and two per output n-tile (the horizontal
+    sum over V's two byte planes)."""
     b, h, w = shape
-    blocks = b * -(-h // MMA_TILE_H) * -(-w // MMA_TILE_W)
-    ntiles = -(-(MMA_TILE_W + 2 * radius) // MMA_N)
-    return blocks * num_disparities * ntiles * 2 * (2 * 16 * MMA_N * 32)
+    halves = b * -(-h // MMA_TILE_H) * -(-w // MMA_WARP_W) * (MMA_TILE_H // MMA_M)
+    vertical = -(-(MMA_WARP_W + 2 * radius) // MMA_N)
+    horizontal = 2 * (MMA_WARP_W // MMA_N)
+    return halves * num_disparities * (vertical + horizontal) * (2 * MMA_M * MMA_N * 32)
 
 
 def key_kernel_body(count: int, total_disparities: int, radius: int) -> str:
@@ -275,7 +304,7 @@ def fused_block_matching(
     """Disparity of a (H, W) uint8 pair -> (H, W) int32.
 
     ``mxu=True`` (packed-pair configurations only, else ``ValueError``)
-    computes the vertical window sum on the tensor cores
+    computes both window sums on the tensor cores
     (``csrc/sad_wta_mma.cu``); the integers are the same."""
     check_gray_pair(left_gray, right_gray, num_disparities, "fused_block_matching")
     if mxu and not _packed_pair_supported(num_disparities, radius):
