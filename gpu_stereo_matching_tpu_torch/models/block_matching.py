@@ -6,6 +6,10 @@ On a CUDA tensor the volume is the split-phase volume kernel, both argmins
 the argmin kernel and the median the median kernel (``kernels/``); on the
 CPU each runs its plain twin. ``block_matching_reference`` runs the plain
 twins on any device, for comparing the kernels' path on a card.
+
+Under a running ``torch.profiler`` each frame opens the spans ``bm.volume``,
+``bm.argmin`` (one a volume), ``bm.right_view``, ``bm.lr_check`` and
+``bm.median`` (``utils/profiling.py::span``).
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from gpu_stereo_matching_tpu_torch.kernels.split_phase import (
 )
 from gpu_stereo_matching_tpu_torch.ops.postprocess import lr_consistency_mask, median_filter_u8
 from gpu_stereo_matching_tpu_torch.ops.wta import wta_disparity
+from gpu_stereo_matching_tpu_torch.utils.profiling import span
 
 _INT32_MAX = torch.iinfo(torch.int32).max
 
@@ -50,22 +55,28 @@ def _disparity(
     wta: Callable,
     median_method: str,
 ) -> torch.Tensor:
-    sad = volume(
-        left_gray, right_gray, config.num_disparities, config.sad_radius,
-        int(config.invalid_cost),
-    )
-    disp = wta(sad)
+    with span("bm.volume"):
+        sad = volume(
+            left_gray, right_gray, config.num_disparities, config.sad_radius,
+            int(config.invalid_cost),
+        )
+    with span("bm.argmin"):
+        disp = wta(sad)
     if config.lr_consistency:
-        sad_r = _right_view_sad(sad)
+        with span("bm.right_view"):
+            sad_r = _right_view_sad(sad)
         del sad  # at most two volumes live at once
-        disp_r = wta(sad_r)
+        with span("bm.argmin"):
+            disp_r = wta(sad_r)
         del sad_r
-        mask = lr_consistency_mask(disp, disp_r, config.lr_max_diff)
-        disp = torch.where(mask, disp, 0)
+        with span("bm.lr_check"):
+            mask = lr_consistency_mask(disp, disp_r, config.lr_max_diff)
+            disp = torch.where(mask, disp, 0)
     if config.median_radius > 0:
-        disp = median_filter_u8(
-            disp.to(torch.uint8), config.median_radius, method=median_method
-        ).to(torch.int32)
+        with span("bm.median"):
+            disp = median_filter_u8(
+                disp.to(torch.uint8), config.median_radius, method=median_method
+            ).to(torch.int32)
     return disp
 
 

@@ -9,6 +9,12 @@ either the fused SAD + WTA kernel (``fused=True``, the JAX rig's
 block matching of ``models/block_matching.py`` with its LR and median
 post-filters (``fused=False``, the JAX rig's ``use_pallas=False``; a batch
 runs frame by frame, as ``jax.lax.map``).
+
+Under a running ``torch.profiler`` the rig opens spans (``utils/profiling.py::
+span``): ``rig.process_batch`` around a batch call and, fused,
+``rig.match`` around its matcher; ``rig.intake`` around both views' frames
+and ``rig.front_end`` in every call; the unfused path's ``bm.*`` spans are
+``models/block_matching.py``'s.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ from gpu_stereo_matching_tpu_torch.kernels.sad_wta import (
 )
 from gpu_stereo_matching_tpu_torch.models.block_matching import block_matching_pipeline
 from gpu_stereo_matching_tpu_torch.utils.cache import ArtifactCache, content_key
-from gpu_stereo_matching_tpu_torch.utils.profiling import StageTimer
+from gpu_stereo_matching_tpu_torch.utils.profiling import StageTimer, span
 
 # Buffer names of the rig's state, in the order of the JAX rig's ``_maps``.
 MAP_NAMES = ("left_map_x", "left_map_y", "right_map_x", "right_map_y")
@@ -90,9 +96,14 @@ class StereoRig(nn.Module):
             )
         return t.contiguous()
 
+    def _intake(self, left_bgr, right_bgr, ndim: int):
+        with span("rig.intake"):
+            return self._frames(left_bgr, ndim), self._frames(right_bgr, ndim)
+
     def _rectified_gray(self, left, right):
-        return rectify_gray_pair(left, right, self.left_map_x, self.left_map_y,
-                                 self.right_map_x, self.right_map_y)
+        with span("rig.front_end"):
+            return rectify_gray_pair(left, right, self.left_map_x, self.left_map_y,
+                                     self.right_map_x, self.right_map_y)
 
     def forward(self, left_bgr, right_bgr) -> torch.Tensor:
         """(B, H, W, 3) uint8 BGR batches -> (B, H, W) int32 disparities."""
@@ -103,7 +114,7 @@ class StereoRig(nn.Module):
         ``timer``, records the stage ``"frame"`` as the JAX rig does: the
         wait, after the frame's work is enqueued, until the device has done
         it."""
-        rl, rr = self._rectified_gray(self._frames(left_bgr, 3), self._frames(right_bgr, 3))
+        rl, rr = self._rectified_gray(*self._intake(left_bgr, right_bgr, 3))
         if self.fused:
             out = fused_block_matching(
                 rl, rr, self.config.num_disparities, self.config.sad_radius
@@ -117,12 +128,14 @@ class StereoRig(nn.Module):
 
     def process_batch(self, left_bgr, right_bgr) -> torch.Tensor:
         """(B, H, W, 3) uint8 BGR batches -> (B, H, W) int32 disparities."""
-        rl, rr = self._rectified_gray(self._frames(left_bgr, 4), self._frames(right_bgr, 4))
-        if not self.fused:
-            return block_matching_pipeline(rl, rr, self.config)
-        return fused_block_matching_batched(
-            rl, rr, self.config.num_disparities, self.config.sad_radius
-        )
+        with span("rig.process_batch"):
+            rl, rr = self._rectified_gray(*self._intake(left_bgr, right_bgr, 4))
+            if not self.fused:
+                return block_matching_pipeline(rl, rr, self.config)
+            with span("rig.match"):
+                return fused_block_matching_batched(
+                    rl, rr, self.config.num_disparities, self.config.sad_radius
+                )
 
 
 def rig_from_yaml(

@@ -1,4 +1,4 @@
-"""Structured per-stage timing and frame metrics.
+"""Structured per-stage timing and the spans of the profiler's trace.
 
 The port of ``gpu_stereo_matching_tpu/utils/profiling.py``:
 
@@ -7,19 +7,20 @@ The port of ``gpu_stereo_matching_tpu/utils/profiling.py``:
   launch before the device finishes, so the span closes after
   ``torch.cuda.synchronize`` on the device of the tensors it is given. On the
   CPU there is nothing to wait for.
-* :class:`FrameMetrics` — the per-frame record (fps, per-stage ms, bad-2.0
-  when ground truth is present).
+* :func:`span` — a named host span in the ``torch.profiler`` trace, on the
+  clock of the card's kernels, copies and runtime calls; open only while a
+  profiler runs, and otherwise one check and nothing more.
 * :func:`trace` — a ``torch.profiler`` trace of the host and the card,
-  written as TensorBoard-readable files.
+  written as TensorBoard-readable files; the spans of :func:`span` are
+  among its user annotations.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-import json
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List
 
 import torch
 
@@ -80,20 +81,22 @@ class StageTimer:
         return " ".join(parts) + f" total={self.total_seconds * 1e3:.2f}ms"
 
 
-@dataclasses.dataclass
-class FrameMetrics:
-    """Structured per-frame observability record."""
+# Whether a profiler is collecting: the one check a span makes when none
+# is.
+_profiling = torch._C._autograd._profiler_enabled
+# Stateless and reusable: a span off hands out this one object.
+_OFF = contextlib.nullcontext()
 
-    pipeline: str
-    height: int
-    width: int
-    num_disparities: int
-    stage_ms: Dict[str, float]
-    fps: Optional[float] = None
-    bad2: Optional[float] = None
 
-    def to_json(self) -> str:
-        return json.dumps(dataclasses.asdict(self))
+def span(name: str):
+    """A host span named ``name`` (``<component>.<stage>``) in the trace of
+    a running ``torch.profiler``: its ``record_function``, a user
+    annotation on the same clock as the card's kernels, copies and runtime
+    calls. With no profiler active it creates no ``RecordFunction``, reads
+    no clock and allocates nothing: a shared null context."""
+    if _profiling():
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 @contextlib.contextmanager

@@ -213,6 +213,10 @@ _DONE_OTHERWISE = {
     # The registry lock is made at import (_REGISTRY_LOCK), not lazily; the
     # coded filter's doubling scan is _scan_affine, the stride filter's.
     "tree/hpd.py": {"_registry_lock", "_seg_scan"},
+    # A per-frame record that nothing of the port read: the port's trace
+    # has spans (utils/profiling.py::span) instead.
+    "utils/profiling.py": {"FrameMetrics"},
+    "utils/__init__.py": {"FrameMetrics"},
 }
 
 
@@ -239,7 +243,8 @@ def test_port_defines_what_the_jax_module_defines(rel):
 
 def _reexports():
     """(package file, name, source module) of every name a JAX
-    ``__init__.py`` imports from a module of its package."""
+    ``__init__.py`` imports from a module of its package, but those that
+    ``_DONE_OTHERWISE`` exempts."""
     import ast
 
     found = []
@@ -249,7 +254,8 @@ def _reexports():
         for node in ast.parse((JAX_PACKAGE / rel).read_text()).body:
             if isinstance(node, ast.ImportFrom) and node.module.startswith(
                     "gpu_stereo_matching_tpu."):
-                found += [(rel, a.asname or a.name, node.module) for a in node.names]
+                found += [(rel, a.asname or a.name, node.module) for a in node.names
+                          if (a.asname or a.name) not in _DONE_OTHERWISE.get(rel, ())]
     return found
 
 

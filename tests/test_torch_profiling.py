@@ -80,14 +80,37 @@ def test_fence_waits_for_a_cuda_tensors_device(monkeypatch):
     assert waited == [torch.device("cuda", 1)]
 
 
-def test_frame_metrics_match_jax_record():
-    fields = dict(pipeline="bm", height=1080, width=1920, num_disparities=64,
-                  stage_ms={"frame": 1.5}, fps=600.0)
-    assert tprof.FrameMetrics(**fields).to_json() == jprof.FrameMetrics(**fields).to_json()
-    assert [f.name for f in dataclasses.fields(tprof.FrameMetrics)] == [
-        f.name for f in dataclasses.fields(jprof.FrameMetrics)]
+def test_stage_span_fields_match_jax_record():
     assert [f.name for f in dataclasses.fields(tprof.StageSpan)] == [
         f.name for f in dataclasses.fields(jprof.StageSpan)]
+
+
+def _refuse(*args, **kwargs):
+    raise AssertionError("a RecordFunction was made with no profiler active")
+
+
+def test_span_off_makes_no_record_function(monkeypatch):
+    """With no profiler active a span is the one shared null context: no
+    ``record_function``, no ``RecordFunction`` behind it."""
+    monkeypatch.setattr(torch.profiler, "record_function", _refuse)
+    monkeypatch.setattr(torch.ops.profiler, "_record_function_enter_new", _refuse)
+    assert not torch._C._autograd._profiler_enabled()
+    with tprof.span("rig.intake") as inner:
+        assert inner is None
+    assert tprof.span("a") is tprof.span("b")
+
+
+def test_span_on_is_a_user_annotation_of_the_trace():
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with tprof.span("rig.match"):
+            torch.ones(8).sum()
+        with tprof.span("rig.match"):
+            pass
+    counts = {e.key: e.count for e in prof.key_averages()}
+    assert counts["rig.match"] == 2
+    assert tprof.span("rig.match") is tprof.span("x")  # off again once it stopped
 
 
 def test_trace_writes_a_profile(tmp_path):
