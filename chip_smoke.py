@@ -482,8 +482,8 @@ def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, bnd, libra
 def run_bm_plus_phases(dev, u8, calib) -> list:
     """Phases 8-11: the split-phase and median kernels vs their twins, the
     bm+ path through its three entry points, and the timings. Returns the
-    three kernels' entries of the summary line and the launches of phase 10
-    by kernel."""
+    launches of phase 10 by kernel and the entries of the summary line of
+    E1, E2, D and E2's right-view body."""
     from gpu_stereo_matching_tpu_torch import BlockMatchingConfig
     from PIL import Image
     from gpu_stereo_matching_tpu_torch.bench.fused_kernel import (
@@ -499,7 +499,7 @@ def run_bm_plus_phases(dev, u8, calib) -> list:
     )
     from gpu_stereo_matching_tpu_torch.models.streaming import StereoRig
     from gpu_stereo_matching_tpu_torch.ops.color import gray_blockmatching_bgr
-    from gpu_stereo_matching_tpu_torch.ops.postprocess import lr_consistency_mask, median_filter_u8
+    from gpu_stereo_matching_tpu_torch.ops.postprocess import median_filter_u8
     from gpu_stereo_matching_tpu_torch.ops.remap import remap_bilinear_u8
     from gpu_stereo_matching_tpu_torch.ops.wta import wta_disparity
 
@@ -515,7 +515,7 @@ def run_bm_plus_phases(dev, u8, calib) -> list:
 
     # 8. Split-phase kernels vs their twins.
     t_phase = time.perf_counter()
-    err_e1 = err_e2 = 0
+    err_e1 = err_e2 = err_lr = 0
     right_views = 0
     bodies = {"strips": 0, "general": 0}
     for _, h, w, d, r in EDGE_CASES + [(1, 1080, 1920, 64, 5)] + MIDDLEBURY_BM_CASES:
@@ -524,9 +524,14 @@ def run_bm_plus_phases(dev, u8, calib) -> list:
         want = split_phase.sad_volume_reference(left, right, d, r)
         err_e1 = max(err_e1, differ(vol, want, f"sad_volume {(h, w, d, r)}"))
         bodies[split_phase.volume_kernel_body(d, r)] += 1
-        err_e2 = max(err_e2, differ(split_phase.wta_from_sad(vol), wta_disparity(want),
-                                    f"wta_from_sad {(h, w, d, r)}"))
+        disp = split_phase.wta_from_sad(vol)
+        err_e2 = max(err_e2, differ(disp, wta_disparity(want), f"wta_from_sad {(h, w, d, r)}"))
         del want
+        for max_diff, dtype in ((1, torch.uint8), (0, torch.int32)):
+            err_lr = max(err_lr, differ(
+                split_phase.lr_check_from_sad(vol, disp, max_diff, dtype),
+                split_phase.lr_check_from_sad_reference(vol, disp, max_diff, dtype),
+                f"lr_check_from_sad {(h, w, d, r)} max_diff={max_diff} {dtype}"))
         vol_r = _right_view_sad(vol)
         if d > 1:
             if int(vol_r.max()) != int32_max:
@@ -553,7 +558,8 @@ def run_bm_plus_phases(dev, u8, calib) -> list:
         structured_cases=structured, cases_by_body=bodies,
         body_of_64_5=split_phase.volume_kernel_body(64, 5),
         right_views_with_int32_max=right_views,
-        max_abs_err_sad_volume=err_e1, max_abs_err_wta=err_e2, ok=True)
+        max_abs_err_sad_volume=err_e1, max_abs_err_wta=err_e2, max_abs_err_lr_check=err_lr,
+        ok=True)
 
     # 9. Median kernel vs its twin, both bodies.
     err_d = 0
@@ -632,10 +638,10 @@ def run_bm_plus_phases(dev, u8, calib) -> list:
 
     def counted(what, want, run):
         """Run one entry point with every counter at 0; its launches must be
-        exactly ``want``: E1 once, E2 twice and D once per frame, the front
+        exactly ``want``: E1, E2, E2's right-view body and D once per frame, the front
         end once per rig call, the gray kernel once per image loaded, the u8
         remap never."""
-        split_phase.LAUNCHES.update(sad_volume=0, wta_from_sad=0)
+        split_phase.LAUNCHES.update(dict.fromkeys(split_phase.LAUNCHES, 0))
         ctmf_median.LAUNCHES = remap.LAUNCHES = remap.PAIR_LAUNCHES = gray.LAUNCHES = 0
         out = run()
         torch.cuda.synchronize()
@@ -646,8 +652,8 @@ def run_bm_plus_phases(dev, u8, calib) -> list:
         return out, got
 
     def per_frame(frames, front_ends=0, grays=0):
-        return {"sad_volume": frames, "wta_from_sad": 2 * frames, "ctmf_median": frames,
-                "front_end": front_ends, "gray": grays, "remap_u8": 0}
+        return {"sad_volume": frames, "wta_from_sad": frames, "lr_check_from_sad": frames,
+                "ctmf_median": frames, "front_end": front_ends, "gray": grays, "remap_u8": 0}
 
     disp2, n_pipeline = counted("block_matching_pipeline", per_frame(2),
                                 lambda: block_matching_pipeline(left2, right2, cfg))
@@ -734,22 +740,20 @@ def run_bm_plus_phases(dev, u8, calib) -> list:
     log("11-time", path="bm+", shape=[1080, 1920, 64, 5], median_radius=3, ms_per_frame=t_bm,
         fps=1e3 / t_bm, plain_ms_per_frame=p_bm, plain_fps=1e3 / p_bm)
     disp = split_phase.wta_from_sad(vol)
-    vol_r = _right_view_sad(vol)
-    disp_r = split_phase.wta_from_sad(vol_r)
-    del vol_r
-    masked = torch.where(lr_consistency_mask(disp, disp_r, 1), disp, 0)
+    t_lr = cuda_ms(lambda: split_phase.lr_check_from_sad(vol, disp, 1, torch.uint8), TIME_REPS)
+    p_lr = cuda_ms(lambda: split_phase.lr_check_from_sad_reference(vol, disp, 1, torch.uint8),
+                   TIME_REPS)
+    log("11-time", kernel="lr_check_from_sad", shape=[1080, 1920, 64, 5], ms=t_lr, plain_ms=p_lr)
+    masked = split_phase.lr_check_from_sad(vol, disp, 1, torch.uint8)
     stages = {
         "sad_volume": t_e1,
-        "right_view_gather": cuda_ms(lambda: _right_view_sad(vol), TIME_REPS),
-        "wta_from_sad_x2": 2 * t_e2,
-        "lr_mask": cuda_ms(lambda: torch.where(lr_consistency_mask(disp, disp_r, 1), disp, 0),
-                           TIME_REPS),
-        "median_r3": cuda_ms(lambda: ctmf_median.ctmf_median_u8(masked.to(torch.uint8), 3),
-                             TIME_REPS),
+        "wta_from_sad": t_e2,
+        "lr_check_from_sad": t_lr,
+        "median_r3": cuda_ms(lambda: ctmf_median.ctmf_median_u8(masked, 3), TIME_REPS),
     }
     log("11-time", path="bm+ by stage", shape=[1080, 1920, 64, 5], stages_ms=stages,
         sum_ms=sum(stages.values()), frame_ms=t_bm)
-    del vol, disp, disp_r
+    del vol, disp
     torch.cuda.empty_cache()
 
     # The median kernel alone: random images and the bm+ masked disparity
@@ -757,11 +761,9 @@ def run_bm_plus_phases(dev, u8, calib) -> list:
     # (the map's ring: the map rolled along its rows by 8 offsets).
     def masked_map(left, right):
         v = split_phase.sad_volume(left, right, 64, 5)
-        d = split_phase.wta_from_sad(v)
-        d_r = split_phase.wta_from_sad(_right_view_sad(v))
-        return torch.where(lr_consistency_mask(d, d_r, 1), d, 0).to(torch.uint8)
+        return split_phase.lr_check_from_sad(v, split_phase.wta_from_sad(v), 1, torch.uint8)
 
-    maps = {(1080, 1920): masked.to(torch.uint8),
+    maps = {(1080, 1920): masked,
             (720, 1280): masked_map(*shifted_pair(rng, dev, (720, 1280), 9))}
     del masked
     torch.cuda.empty_cache()
@@ -812,6 +814,14 @@ def run_bm_plus_phases(dev, u8, calib) -> list:
                         launches["ctmf_median"], err_d, t_d[3], p_d[3],
                         bound((2 * 7 + 32) * px, 2 * px), None, [1080, 1920, 3]),
          "device_ms": dev_d[3], "select_instructions_per_pixel": instructions.get(3)},
+        # E2's right-view body: a compare and select per element of the
+        # volume, read on its diagonal, and the check per pixel; the volume
+        # and the left map in, the uint8 map out.
+        {**kernel_entry("lr_check_from_sad", "split_phase.cu", "", launches["lr_check_from_sad"],
+                        err_lr, t_lr, p_lr, bound(2 * 64 * px, (4 * 64 + 4 + 1) * px), None,
+                        [64, 1080, 1920]),
+         "replaces": "gpu_stereo_matching_tpu/models/block_matching.py:66-70 (_right_view_sad, "
+                     "its wta_disparity, lr_consistency_mask, where: XLA, no TPU kernel)"},
     ]
 
 
@@ -1123,7 +1133,7 @@ def zero_launches() -> None:
     """Every kernel's launch counter to 0."""
     from gpu_stereo_matching_tpu_torch.kernels import ctmf_median, gray, remap, sad_wta, split_phase
 
-    split_phase.LAUNCHES.update(sad_volume=0, wta_from_sad=0)
+    split_phase.LAUNCHES.update(dict.fromkeys(split_phase.LAUNCHES, 0))
     ctmf_median.LAUNCHES = remap.LAUNCHES = remap.PAIR_LAUNCHES = gray.LAUNCHES = 0
     sad_wta.LAUNCHES = sad_wta.KEY_LAUNCHES = sad_wta.MMA_LAUNCHES = 0
 
@@ -1562,8 +1572,10 @@ TILED_BANDS = (1, 4, 8)  # band counts timed at 720x1280
 MIDDLEBURY_PIPELINES = "bm,bm+,st1,st2"
 # Launches of one `middlebury` run over one scene with MIDDLEBURY_PIPELINES
 # on the card: bm and bm+ convert both views with G, bm runs E1 and E2 once,
-# bm+ E1 once, E2 twice and D once; ST-1 runs D once, ST-2 three times.
-MIDDLEBURY_LAUNCHES = {"gray": 4, "sad_volume": 2, "wta_from_sad": 3, "ctmf_median": 5}
+# bm+ E1, E2, E2's right-view body and D once each; ST-1 runs D once, ST-2
+# three times.
+MIDDLEBURY_LAUNCHES = {"gray": 4, "sad_volume": 2, "wta_from_sad": 2, "lr_check_from_sad": 1,
+                       "ctmf_median": 5}
 
 
 def middlebury_scene(root: str, hw) -> str:
@@ -1685,7 +1697,8 @@ def run_tiled_phase(dev, started: float) -> dict:
     cfg = SegmentTreeConfig()  # D=60, sigma 0.1, sigma_1 0.08, tau 1200, min size 50, r=3, x4
     num_d = cfg.max_disp_levels
     cpu = torch.device("cpu")
-    totals = dict.fromkeys(("ctmf_median", "sad_volume", "wta_from_sad", "gray"), 0)
+    totals = dict.fromkeys(("ctmf_median", "sad_volume", "wta_from_sad", "lr_check_from_sad",
+                            "gray"), 0)
 
     def mesh(space, device=dev):
         return virtual_mesh(MeshConfig(1, space, 1), device)
@@ -2363,6 +2376,8 @@ class TwinRecorder:
              lambda args, out: out, lambda args: True),
             (split_phase, "_launch_wta", "wta_from_sad", wta_disparity,
              lambda args, out: out, lambda args: True),
+            (split_phase, "_launch_lr_check", "lr_check_from_sad",
+             split_phase.lr_check_from_sad_reference, lambda args, out: out, lambda args: True),
             (ctmf_median, "_launch", "ctmf_median",
              lambda x, r, m: median_filter_u8(x, r, "histogram", m),
              lambda args, out: out, lambda args: True),
@@ -3337,6 +3352,12 @@ def main() -> int:
            "launches_by_path": {"bm+": entry["launches"], "middlebury": tiled_launches[name],
                                 "benches": benches[name]}}
           for entry, name in zip(bm_plus[:2], ("sad_volume", "wta_from_sad"))),
+        # E2's right-view body runs on bm+ (phase 10) and through the
+        # middlebury command's bm+ (phase 18).
+        {**bm_plus[3],
+         "launches": bm_plus[3]["launches"] + tiled_launches["lr_check_from_sad"],
+         "launches_by_path": {"bm+": bm_plus[3]["launches"],
+                              "middlebury": tiled_launches["lr_check_from_sad"]}},
         # Kernel D runs on every path with a median: once a bm+ frame (phase
         # 10), once an ST-1 frame (phase 16), three times an ST-2 frame (phase
         # 17) and so in the streaming pipelines (phase 17), once a band of a

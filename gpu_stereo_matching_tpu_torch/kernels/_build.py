@@ -52,6 +52,7 @@ _SIGNATURES = {
     "gsm_sad_volume_u8": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gsm_sad_volume_plan": [_I, _I, _I, _I, _P],
     "gsm_wta_i32": [_P, _P, _I, _I, _P],
+    "gsm_wta_lr_i32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gsm_median_u8": [_P, _P, _P, _I, _I, _I, _I, _P],
     "gsm_median_plan": [_I, _I, _I, _I, _P],
 }

@@ -54,13 +54,40 @@
 //   one barrier each output thread adds its 2r + 1 neighbours for each row
 //   and stores the row's value: the stores of a warp are consecutive in x.
 //
-// gsm_wta_i32: a (D, N) int32 volume -> (N) int32 argmin over d. One thread
-// per pixel walks d upward and keeps (min, argmin) on a strict '<', so ties
-// go to the smallest d, as torch.argmin. The TPU kernel packs the key
-// SAD * D + d instead; the right-view volume holds INT32_MAX where x + d is
-// past the image, and there that key overflows int32, so no key is packed
-// here. What bounds it: reading the volume once (D*N*4 bytes); the loads of
-// a warp are consecutive in N.
+// wta_kernel has two bodies, chosen by its View template argument.
+//
+// * The left view (gsm_wta_i32): a (D, N) int32 volume -> (N) int32 argmin
+//   over d. One thread per pixel walks d upward and keeps (min, argmin) on a
+//   strict '<', so ties go to the smallest d, as torch.argmin. The TPU
+//   kernel packs the key SAD * D + d instead; a volume may hold INT32_MAX,
+//   and there that key overflows int32, so no key is packed here. What
+//   bounds it: reading the volume once (D*N*4 bytes); the loads of a warp
+//   are consecutive in N.
+// * The right view with the LR check (gsm_wta_lr_i32): the left volume and
+//   the left map dl -> the LR-checked left map, int32 or uint8. It replaces
+//   the plain torch that models/block_matching.py ran after the left argmin,
+//   the port of gpu_stereo_matching_tpu/models/block_matching.py's
+//   _right_view_sad (an XLA gather), its second wta_from_sad and
+//   ops/postprocess.py's lr_consistency_mask with the where: a gather that
+//   wrote a second volume, a fill of it past the edge, a second argmin and a
+//   dozen small launches. Here the right view is the left volume read on
+//   the diagonal:
+//     dr(y, x') = argmin over d < D with x' + d < W of SAD(d, y, x' + d),
+//   walked upward on a strict '<' (a real SAD never reaches INT32_MAX, the
+//   fill the plain right view puts past the edge, and d = 0 is always inside
+//   the image, so the fill never wins); then
+//     out(y, x) = dl if dl > 0, x - dl >= 0 and |dl - dr(y, x - dl)| <= max_diff,
+//                 else 0,
+//   stored as int32, or as uint8 by truncation as .to(torch.uint8) does. A
+//   block takes one row and loops over it in chunks of its threads, keeping
+//   the row's dr in shared memory (W * 4 bytes) so that the lookup at x - dl
+//   stays inside the block; after a barrier the same threads apply the
+//   check. What bounds it: reading the volume once (D*H*W*4 bytes, less the
+//   triangle x < d that no right-view pixel reads) and dl, and writing the
+//   map: 262 MB + 4 MB in and 1 MB out at 800x1280, D=64, about 0.08 ms at
+//   3.35 TB/s. So every element is loaded once, as a streaming load
+//   (ld.global.cs: no later kernel reads the volume), and a warp's loads of
+//   plane d are consecutive in x, offset by d.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -349,23 +376,81 @@ cudaError_t run_volume(const uint8_t* l, const uint8_t* rt, int32_t* o, int H, i
 }
 
 constexpr int kWtaThreads = 256;
+// Shared memory a block can hold: the right-view body keeps W int32 there.
+constexpr int kWtaMaxSmem = 232448;
 
-__global__ void __launch_bounds__(kWtaThreads) wta_kernel(
-    const int32_t* __restrict__ sad, int32_t* __restrict__ out, int D, int n) {
-  const int p = blockIdx.x * kWtaThreads + threadIdx.x;
-  if (p >= n) return;
-  const int32_t* col = sad + p;
-  int best = col[0];
-  int best_d = 0;
+enum WtaView { kLeftView, kRightViewLr };
+
+// The right view's argmins of row blockIdx.x into shared memory, then the
+// LR check of the left map dl against them into `out`.
+template <typename OutT>
+__device__ __forceinline__ void right_view_lr_body(
+    const int32_t* __restrict__ sad, OutT* __restrict__ out, int D, int n,
+    const int32_t* __restrict__ dl, int W, int max_diff) {
+  extern __shared__ int32_t row_dr[];
+  const size_t row = (size_t)blockIdx.x * W;
+  const size_t diagonal = (size_t)n + 1;  // from (d, y, x' + d) to (d + 1, y, x' + d + 1)
+  for (int x = threadIdx.x; x < W; x += kWtaThreads) {
+    const int32_t* col = sad + row + x;
+    const int d_end = min(D, W - x);
+    int best = __ldcs(col);
+    int best_d = 0;
 #pragma unroll 8
-  for (int d = 1; d < D; ++d) {
-    const int s = col[(size_t)d * n];
-    if (s < best) {
-      best = s;
-      best_d = d;
+    for (int d = 1; d < d_end; ++d) {
+      const int s = __ldcs(col + d * diagonal);
+      if (s < best) {
+        best = s;
+        best_d = d;
+      }
     }
+    row_dr[x] = best_d;
   }
-  out[p] = best_d;
+  __syncthreads();
+  for (int x = threadIdx.x; x < W; x += kWtaThreads) {
+    const int d = dl[row + x];
+    const int src = x - d;
+    const bool ok = d > 0 && src >= 0 && abs(d - row_dr[src]) <= max_diff;
+    out[row + x] = static_cast<OutT>(ok ? d : 0);
+  }
+}
+
+template <int View, typename OutT>
+__global__ void __launch_bounds__(kWtaThreads) wta_kernel(
+    const int32_t* __restrict__ sad, OutT* __restrict__ out, int D, int n,
+    const int32_t* __restrict__ dl, int W, int max_diff) {
+  if constexpr (View == kLeftView) {
+    const int p = blockIdx.x * kWtaThreads + threadIdx.x;
+    if (p >= n) return;
+    const int32_t* col = sad + p;
+    int best = col[0];
+    int best_d = 0;
+#pragma unroll 8
+    for (int d = 1; d < D; ++d) {
+      const int s = col[(size_t)d * n];
+      if (s < best) {
+        best = s;
+        best_d = d;
+      }
+    }
+    out[p] = best_d;
+  } else {
+    right_view_lr_body(sad, out, D, n, dl, W, max_diff);
+  }
+}
+
+template <typename OutT>
+cudaError_t launch_right_view_lr(const int32_t* sad, const int32_t* dl, OutT* out, int D,
+                                 int H, int W, int max_diff, cudaStream_t stream) {
+  const size_t smem = (size_t)W * sizeof(int32_t);
+  if (smem > kWtaMaxSmem) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(wta_kernel<kRightViewLr, OutT>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  wta_kernel<kRightViewLr, OutT><<<H, kWtaThreads, smem, stream>>>(sad, out, D, H * W, dl, W,
+                                                                   max_diff);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -398,7 +483,23 @@ extern "C" int gsm_sad_volume_u8(const void* left, const void* right, void* out,
 extern "C" int gsm_wta_i32(const void* sad, void* out, int D, int n, void* stream) {
   if (D < 1 || n < 1) return cudaErrorInvalidValue;
   const int blocks = (n + kWtaThreads - 1) / kWtaThreads;
-  wta_kernel<<<blocks, kWtaThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(sad), static_cast<int32_t*>(out), D, n);
+  wta_kernel<kLeftView, int32_t><<<blocks, kWtaThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(sad), static_cast<int32_t*>(out), D, n, nullptr, 0, 0);
   return cudaGetLastError();
+}
+
+// The (D, H, W) int32 left volume and the (H, W) int32 left map -> the
+// (H, W) LR-checked left map (uint8 if out_u8, else int32), on `stream`:
+// the right view's argmin read on the volume's diagonal, then the check
+// with tolerance max_diff. W int32 must fit a block's shared memory.
+// Returns the CUDA error code (0 on success).
+extern "C" int gsm_wta_lr_i32(const void* sad, const void* disp_left, void* out, int D, int H,
+                              int W, int max_diff, int out_u8, void* stream) {
+  if (D < 1 || H < 1 || W < 1) return cudaErrorInvalidValue;
+  const int32_t* s = static_cast<const int32_t*>(sad);
+  const int32_t* dl = static_cast<const int32_t*>(disp_left);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (out_u8)
+    return launch_right_view_lr(s, dl, static_cast<uint8_t*>(out), D, H, W, max_diff, st);
+  return launch_right_view_lr(s, dl, static_cast<int32_t*>(out), D, H, W, max_diff, st);
 }

@@ -2,14 +2,19 @@
 SAD volume -> WTA -> [LR consistency] -> [median], as
 ``gpu_stereo_matching_tpu/models/block_matching.py``.
 
-On a CUDA tensor the volume is the split-phase volume kernel, both argmins
-the argmin kernel and the median the median kernel (``kernels/``); on the
-CPU each runs its plain twin. ``block_matching_reference`` runs the plain
-twins on any device, for comparing the kernels' path on a card.
+On a CUDA tensor the volume is the split-phase volume kernel, the argmin the
+argmin kernel, the LR check the argmin kernel's right-view body (the right
+view's argmin read on the left volume's diagonal, then the check, in one
+launch, ``kernels/split_phase.py::lr_check_from_sad``) and the median the
+median kernel (``kernels/``); on the CPU each runs its plain twin.
+``block_matching_reference`` runs the plain twins on any device, with the
+right view as a second volume (``_right_view_sad``), for comparing the
+kernels' path on a card.
 
 Under a running ``torch.profiler`` each frame opens the spans ``bm.volume``,
-``bm.argmin`` (one a volume), ``bm.right_view``, ``bm.lr_check`` and
-``bm.median`` (``utils/profiling.py::span``).
+``bm.argmin``, ``bm.lr_check`` and ``bm.median``
+(``utils/profiling.py::span``); the reference opens ``bm.right_view`` and a
+second ``bm.argmin`` inside its ``bm.lr_check``.
 """
 
 from __future__ import annotations
@@ -20,7 +25,10 @@ import torch
 
 from gpu_stereo_matching_tpu_torch.core.config import BlockMatchingConfig
 from gpu_stereo_matching_tpu_torch.core.validation import check_gray_pair
-from gpu_stereo_matching_tpu_torch.kernels.split_phase import (
+from gpu_stereo_matching_tpu_torch.kernels.split_phase import (  # noqa: F401
+    _gather_wx,
+    _right_view_sad,
+    lr_check_from_sad,
     sad_volume,
     sad_volume_reference,
     wta_from_sad,
@@ -29,22 +37,16 @@ from gpu_stereo_matching_tpu_torch.ops.postprocess import lr_consistency_mask, m
 from gpu_stereo_matching_tpu_torch.ops.wta import wta_disparity
 from gpu_stereo_matching_tpu_torch.utils.profiling import span
 
-_INT32_MAX = torch.iinfo(torch.int32).max
 
-
-def _gather_wx(vol: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
-    """Gather ``vol[d, y, src[d, x]]`` -> (D, H, W)."""
-    return torch.gather(vol, -1, src[:, None, :].expand(vol.shape))
-
-
-def _right_view_sad(sad: torch.Tensor) -> torch.Tensor:
-    """Right-view SAD from the left one: ``right(d, y, x) = left(d, y, x + d)``;
-    where ``x + d`` is past the image the entry is ``INT32_MAX``, so WTA
-    never picks it. The fill is in place on the gathered volume."""
-    num_d, _, w = sad.shape
-    src = torch.arange(w, device=sad.device)[None, :] + torch.arange(num_d, device=sad.device)[:, None]
-    gathered = _gather_wx(sad, src.clamp(max=w - 1))
-    return gathered.masked_fill_((src > w - 1)[:, None, :], _INT32_MAX)
+def _plain_lr_check(sad, disp, max_diff, out_dtype):
+    """The reference's LR check: the right view as a second volume, its
+    argmin, the mask and the ``where``."""
+    with span("bm.right_view"):
+        sad_r = _right_view_sad(sad)
+    with span("bm.argmin"):
+        disp_r = wta_disparity(sad_r)
+    del sad_r
+    return torch.where(lr_consistency_mask(disp, disp_r, max_diff), disp, 0).to(out_dtype)
 
 
 def _disparity(
@@ -53,6 +55,7 @@ def _disparity(
     config: BlockMatchingConfig,
     volume: Callable,
     wta: Callable,
+    lr_check: Callable,
     median_method: str,
 ) -> torch.Tensor:
     with span("bm.volume"):
@@ -63,20 +66,17 @@ def _disparity(
     with span("bm.argmin"):
         disp = wta(sad)
     if config.lr_consistency:
-        with span("bm.right_view"):
-            sad_r = _right_view_sad(sad)
-        del sad  # at most two volumes live at once
-        with span("bm.argmin"):
-            disp_r = wta(sad_r)
-        del sad_r
+        # The median takes the checked map as uint8, with no cast between.
+        out_dtype = torch.uint8 if config.median_radius > 0 else torch.int32
         with span("bm.lr_check"):
-            mask = lr_consistency_mask(disp, disp_r, config.lr_max_diff)
-            disp = torch.where(mask, disp, 0)
+            disp = lr_check(sad, disp, config.lr_max_diff, out_dtype)
+    del sad
     if config.median_radius > 0:
         with span("bm.median"):
-            disp = median_filter_u8(
-                disp.to(torch.uint8), config.median_radius, method=median_method
-            ).to(torch.int32)
+            if disp.dtype != torch.uint8:
+                disp = disp.to(torch.uint8)
+            disp = median_filter_u8(disp, config.median_radius, method=median_method)
+            disp = disp.to(torch.int32)
     return disp
 
 
@@ -86,7 +86,9 @@ def block_matching_disparity(
     config: BlockMatchingConfig = BlockMatchingConfig(),
 ) -> torch.Tensor:
     """Disparity of a (H, W) uint8 gray pair -> (H, W) int32."""
-    return _disparity(left_gray, right_gray, config, sad_volume, wta_from_sad, "auto")
+    return _disparity(
+        left_gray, right_gray, config, sad_volume, wta_from_sad, lr_check_from_sad, "auto"
+    )
 
 
 def _frames(fn, left_gray, right_gray, config) -> torch.Tensor:
@@ -108,7 +110,8 @@ def block_matching_pipeline(
 
 def _reference_disparity(left_gray, right_gray, config):
     return _disparity(
-        left_gray, right_gray, config, sad_volume_reference, wta_disparity, "histogram"
+        left_gray, right_gray, config, sad_volume_reference, wta_disparity, _plain_lr_check,
+        "histogram",
     )
 
 

@@ -120,18 +120,20 @@ def card():
 @pytest.mark.gpu
 def test_harness_on_the_card_equals_the_cpu(card, scene_root):
     """Each pipeline's rates on the card equal the CPU's; bm launches E1 and
-    E2 once, bm+ E1 once, E2 twice and D once, ST-1 D once, ST-2 D three
-    times."""
+    E2 once, bm+ E1, E2, E2's right-view body with the LR check and D once
+    each, ST-1 D once, ST-2 D three times."""
     from gpu_stereo_matching_tpu_torch.kernels import ctmf_median, split_phase
 
+    def counts():
+        return (split_phase.LAUNCHES["sad_volume"], split_phase.LAUNCHES["wta_from_sad"],
+                split_phase.LAUNCHES["lr_check_from_sad"], ctmf_median.LAUNCHES)
+
     scene = tmb.load_middlebury_scene(scene_root, "Synth")
-    for pipeline, launches in (("bm", (1, 1, 0)), ("bm+", (1, 2, 1)), ("st1", (0, 0, 1)),
-                               ("st2", (0, 0, 3))):
-        before = (split_phase.LAUNCHES["sad_volume"], split_phase.LAUNCHES["wta_from_sad"],
-                  ctmf_median.LAUNCHES)
+    for pipeline, launches in (("bm", (1, 1, 0, 0)), ("bm+", (1, 1, 1, 1)),
+                               ("st1", (0, 0, 0, 1)), ("st2", (0, 0, 0, 3))):
+        before = counts()
         got = tbench.evaluate_scene(scene, pipeline, device=card)
-        after = (split_phase.LAUNCHES["sad_volume"], split_phase.LAUNCHES["wta_from_sad"],
-                 ctmf_median.LAUNCHES)
+        after = counts()
         assert tuple(a - b for a, b in zip(after, before)) == launches
         want = tbench.evaluate_scene(scene, pipeline, device="cpu")
         assert (got.bad2, got.bad2_nonocc) == (want.bad2, want.bad2_nonocc)

@@ -258,7 +258,7 @@ def test_cli_colorize(tmp_path, gray_pair):
 
 
 def _record_launches(monkeypatch):
-    """Replace the three launchers with recorders returning empty tensors of
+    """Replace the four launchers with recorders returning empty tensors of
     the kernels' output shapes, so a device tensor's path can be traced on a
     machine without a card."""
     calls = []
@@ -271,12 +271,17 @@ def _record_launches(monkeypatch):
         calls.append("wta_from_sad")
         return torch.zeros(sad.shape[1:], dtype=torch.int32, device=sad.device)
 
+    def lr_check(sad, disp_left, max_diff, out_dtype):
+        calls.append("lr_check_from_sad")
+        return torch.zeros(disp_left.shape, dtype=out_dtype, device=sad.device)
+
     def median(x, radius, valid_mask):
         calls.append("median")
         return torch.empty_like(x)
 
     monkeypatch.setattr(tsp, "_launch_volume", volume)
     monkeypatch.setattr(tsp, "_launch_wta", wta)
+    monkeypatch.setattr(tsp, "_launch_lr_check", lr_check)
     monkeypatch.setattr(tcm, "_launch", median)
     return calls
 
@@ -297,7 +302,9 @@ def test_device_tensors_reach_the_launchers(monkeypatch):
     cfg = BlockMatchingConfig(num_disparities=4, sad_radius=1, lr_consistency=True, median_radius=3)
     disp = tbm.block_matching_pipeline(meta, meta, cfg)
     assert disp.shape == (2, 8, 12) and disp.dtype == torch.int32
-    assert calls == ["sad_volume", "wta_from_sad", "wta_from_sad", "median"] * 2
+    # The right view's argmin and the LR check are one launch of the argmin
+    # kernel's second body, whose uint8 map the median takes as it is.
+    assert calls == ["sad_volume", "wta_from_sad", "lr_check_from_sad", "median"] * 2
     calls.clear()
     tbm.block_matching_reference(_t(_u8(16, (8, 12))), _t(_u8(17, (8, 12))), cfg)
     assert calls == []
@@ -344,7 +351,8 @@ def test_bm_plus_pipeline_on_card_reaches_the_kernels(cuda_device):
     got = tbm.block_matching_pipeline(lt, rt, BM_PLUS)
     torch.cuda.synchronize()
     assert tsp.LAUNCHES["sad_volume"] == before[0]["sad_volume"] + 2
-    assert tsp.LAUNCHES["wta_from_sad"] == before[0]["wta_from_sad"] + 4
+    assert tsp.LAUNCHES["wta_from_sad"] == before[0]["wta_from_sad"] + 2
+    assert tsp.LAUNCHES["lr_check_from_sad"] == before[0]["lr_check_from_sad"] + 2
     assert tcm.LAUNCHES == before[1] + 2
     assert torch.equal(got, tbm.block_matching_reference(lt, rt, BM_PLUS))
     np.testing.assert_array_equal(got.cpu().numpy(), tbm.block_matching_pipeline(_t(left), _t(right), BM_PLUS).numpy())

@@ -234,6 +234,28 @@ def test_wta_on_right_view_volume_with_int32_max():
     assert torch.equal(tsp.wta_from_sad(all_max), want)
 
 
+@pytest.mark.parametrize("out_dtype", [torch.int32, torch.uint8], ids=["i32", "u8"])
+@pytest.mark.parametrize("max_diff", [0, 1, 3])
+@pytest.mark.parametrize("shape,num_d,radius", [((12, 40), 16, 2), ((9, 70), 63, 5), ((5, 300), 260, 1)])
+def test_lr_check_twin_matches_jax(shape, num_d, radius, max_diff, out_dtype):
+    """The right-view entry's twin equals the JAX bm path's right view, its
+    argmin, the LR mask, the ``where`` and the uint8 cast of the median's
+    input (D = 260: the cast wraps)."""
+    from gpu_stereo_matching_tpu.models.block_matching import _right_view_sad as jax_right_view
+    from gpu_stereo_matching_tpu.ops.postprocess import lr_consistency_mask as jax_lr_mask
+    from gpu_stereo_matching_tpu.ops.wta import wta_disparity as jax_wta
+
+    left, right = _pair(9, shape)
+    sad = tsp.sad_volume(torch.from_numpy(left), torch.from_numpy(right), num_d, radius)
+    disp = tsp.wta_from_sad(sad)
+    jsad = jnp.asarray(sad.numpy())
+    jdisp = jnp.asarray(disp.numpy())
+    want = jnp.where(jax_lr_mask(jdisp, jax_wta(jax_right_view(jsad)), max_diff), jdisp, 0)
+    want = np.asarray(want.astype(jnp.uint8 if out_dtype == torch.uint8 else jnp.int32))
+    got = tsp.lr_check_from_sad(sad, disp, max_diff, out_dtype)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_cpu_wrappers_do_not_launch():
     left, right = _pair(7, (8, 12))
     before = dict(tsp.LAUNCHES)
