@@ -12,7 +12,10 @@ the second half, at most ``TRACE_CAP_S``, runs under the profiler
 (``trace.py``); the cell's per-layer metrics are read from both. After the
 window a sample of the calls' outputs, drawn from the seed, is compared with
 the plain reference (``systems/<system>.py``), and the last line of standard
-output is the result.
+output is the result. A configuration whose program computes in floating
+point may state a ``comparison``: its reference then also marks the pixels
+where its own answer is a near-tie, and a mismatch there is excused, up to
+the share the configuration allows (``comparison_of``).
 
 It refuses to run without enough CUDA devices, and refuses to print a
 result if the process holds ``jax``, ``jaxlib``, ``flax`` or the JAX
@@ -28,6 +31,7 @@ T_PROCESS = time.perf_counter()
 import argparse  # noqa: E402
 import dataclasses  # noqa: E402
 import json  # noqa: E402
+import math  # noqa: E402
 import os  # noqa: E402
 import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
@@ -41,6 +45,9 @@ if str(ROOT) not in sys.path:
 CACHE_DIR = ROOT / ".bench_cache"
 FORBIDDEN = ("jax", "jaxlib", "flax", "gpu_stereo_matching_tpu")
 TRACE_CAP_S = 4.0
+# The largest share of the pixels compared that a configuration may let its
+# reference excuse.
+MAX_EXCUSED_SHARE = 0.01
 
 
 @dataclasses.dataclass
@@ -65,24 +72,65 @@ def forbidden_modules(modules=None) -> List[str]:
     return sorted({m for m in names if m.split(".")[0] in FORBIDDEN})
 
 
+def comparison_of(config: dict) -> Optional[dict]:
+    """The configuration's ``comparison``, ``{"excused_share_at_most": x,
+    "why": reason}``, or None where its maps are compared exactly; a
+    comparison that allows more than ``MAX_EXCUSED_SHARE`` or gives no
+    reason is an error."""
+    found = config.get("comparison")
+    if found is None:
+        return None
+    share, why = found.get("excused_share_at_most"), found.get("why")
+    if (set(found) != {"excused_share_at_most", "why"} or not isinstance(share, (int, float))
+            or not 0 <= share <= MAX_EXCUSED_SHARE or not str(why).strip()):
+        raise ValueError(f"{config.get('name')}: a comparison is {{'excused_share_at_most': "
+                         f"a share in [0, {MAX_EXCUSED_SHARE}], 'why': a reason}}, not {found}")
+    return found
+
+
+def split_reference(answer) -> tuple:
+    """A reference's answer as (maps, excused): a reference may return the
+    bool mask of the pixels where its own answer is a near-tie beside its
+    maps; excused is None where it returns the maps alone."""
+    import torch
+
+    if not isinstance(answer, tuple):
+        return answer, None
+    maps, excused = answer
+    if excused.dtype != torch.bool or tuple(excused.shape) != tuple(maps.shape):
+        raise ValueError(f"an excused mask is a bool tensor of the maps' shape "
+                         f"{tuple(maps.shape)}, not {excused.dtype} {tuple(excused.shape)}")
+    return maps, excused
+
+
 def check_outputs(sample, pool: list, expected_of: Callable) -> dict:
     """Compare each sampled call's output with the reference's for its
-    frames; every call of a pool batch gets the same frames."""
+    frames; every call of a pool batch gets the same frames. A mismatch at
+    a pixel that the reference excuses is not counted; ``excused_px`` counts
+    the excused pixels of the calls compared (None where the reference
+    excuses none), ``pixels`` the pixels compared."""
     expected, mismatch, frames, wrong_calls = {}, 0, 0, 0
+    excused_px, pixels = None, 0
     for index, out in sample.kept:
         p = index % len(pool)
         if p not in expected:
-            expected[p] = expected_of(*pool[p])
-        want = expected[p]
+            expected[p] = split_reference(expected_of(*pool[p]))
+        want, excused = expected[p]
         if tuple(out.shape) != tuple(want.shape) or out.dtype != want.dtype:
             bad = want.numel()
         else:
-            bad = int((out.to(want.device) != want).sum())
+            differ = out.to(want.device) != want
+            if excused is not None:
+                differ &= ~excused
+            bad = int(differ.sum())
+        if excused is not None:
+            excused_px = (excused_px or 0) + int(excused.sum())
         mismatch += bad
         frames += want.shape[0]
+        pixels += want.numel()
         wrong_calls += bad > 0
     return {"mismatch_px": mismatch, "frames": frames, "wrong_calls": wrong_calls,
-            "pool_batches": len(expected)}
+            "pool_batches": len(expected), "excused_px": excused_px, "pixels": pixels}
 
 
 def run_cell(registry, name: str, seed: int, seconds: float, traced: bool, device,
@@ -96,6 +144,7 @@ def run_cell(registry, name: str, seed: int, seconds: float, traced: bool, devic
 
     cell = registry.cell(name)
     cfg, mix = cell.config, cell.traffic
+    comparison = comparison_of(cfg)
     cuda = device.type == "cuda"
     stages = dict(stages or {})
 
@@ -158,12 +207,17 @@ def run_cell(registry, name: str, seed: int, seconds: float, traced: bool, devic
     if cuda:
         torch.cuda.empty_cache()
     found = check_outputs(sample, pool, system.reference(cfg, device))
+    if found["excused_px"] is not None and comparison is None:
+        raise ValueError(f"the reference of {cfg['name']} excuses pixels, but the "
+                         "configuration states no comparison")
     batches = max(min(len(pool), sample.seen), 1)
-    checks = {
-        "disparity_mismatch_px": {"value": found["mismatch_px"], "at_most": 0},
-        "frames_checked": {"value": found["frames"], "at_least": batches * batch},
-        "pool_batches_checked": {"value": found["pool_batches"], "at_least": batches},
-    }
+    checks = {"disparity_mismatch_px": {"value": found["mismatch_px"], "at_most": 0}}
+    if comparison is not None:
+        allowed = math.floor(comparison["excused_share_at_most"] * found["pixels"])
+        checks["disparity_excused_px"] = {"value": found["excused_px"] or 0,
+                                          "at_most": allowed, "of": found["pixels"]}
+    checks["frames_checked"] = {"value": found["frames"], "at_least": batches * batch}
+    checks["pool_batches_checked"] = {"value": found["pool_batches"], "at_least": batches}
     correct = all(v["value"] <= v.get("at_most", v["value"])
                   and v["value"] >= v.get("at_least", v["value"]) for v in checks.values())
 

@@ -1,9 +1,11 @@
 """A tiny registry beside the real one: the configurations cut to 40x64 at
 16 disparities, a traffic mix of 2 pairs a call, and a BENCHMARK.json whose
 cells use them, all in a temporary directory; nothing of ``benchmark/`` is
-edited."""
+edited. A toy registry adds a float system whose reference excuses pixels
+(``toy_float_system.py``)."""
 
 import json
+import shutil
 from pathlib import Path
 
 import pytest
@@ -47,9 +49,37 @@ def tiny_registry(root: Path) -> Registry:
     return Registry(root / "BENCHMARK.json", [root, HERE])
 
 
+TOY_CONFIG = {"name": "toy-float", "system": "toy_float", "image_hw": [128, 256],
+              "quantum": 128, "toy_flip": "none",
+              "comparison": {"excused_share_at_most": 0.01,
+                             "why": "sums on a step of the quantum may round either way"}}
+
+
+def toy_registry(root: Path, changes: dict = None) -> Registry:
+    """The tiny registry and a cell ``toy.tiny`` of the toy float system,
+    its configuration ``TOY_CONFIG`` with ``changes`` (None drops a key)."""
+    tiny_registry(root)
+    (root / "systems").mkdir()
+    shutil.copy(Path(__file__).with_name("toy_float_system.py"), root / "systems" / "toy_float.py")
+    cfg = {**TOY_CONFIG, **(changes or {})}
+    cfg = {k: v for k, v in cfg.items() if v is not None}
+    (root / "configs" / "toy-float.json").write_text(json.dumps(cfg))
+    spec = json.loads((root / "BENCHMARK.json").read_text())
+    spec["workloads"].append({"name": "toy.tiny", "config": "toy-float",
+                              "traffic": "resident-b8-tiny", "chips": 1, "why": "toy"})
+    (root / "BENCHMARK.json").write_text(json.dumps(spec))
+    return Registry(root / "BENCHMARK.json", [root, HERE])
+
+
 @pytest.fixture
 def tiny(tmp_path) -> Registry:
     return tiny_registry(tmp_path)
+
+
+@pytest.fixture
+def toy(tmp_path):
+    """``toy(changes)``: the toy registry in a temporary directory."""
+    return lambda changes=None: toy_registry(tmp_path, changes)
 
 
 @pytest.fixture

@@ -8,6 +8,7 @@ import re
 import pytest
 
 from benchmark.registry import BENCHMARK_JSON, HERE, Registry
+from benchmark.run import MAX_EXCUSED_SHARE, comparison_of
 
 SPEC = json.loads(BENCHMARK_JSON.read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
@@ -70,6 +71,31 @@ def test_every_cell_resolves_and_reports_enough(cell):
     config = next(c for c in SPEC["configs"] if c["name"] == found.config["name"])
     assert config["file"].startswith("benchmark/") and config["reduced"] == found.config["reduced"]
     assert found.config["source"] == config["source"]
+
+
+@pytest.mark.parametrize("name", [c["name"] for c in SPEC["configs"]])
+def test_a_stated_comparison_excuses_a_bounded_share_for_a_reason(name):
+    config = Registry().config(name)
+    comparison = comparison_of(config)
+    assert comparison == config.get("comparison")
+    if comparison is not None:
+        assert 0 <= comparison["excused_share_at_most"] <= MAX_EXCUSED_SHARE
+        assert comparison["why"].strip() and "\n" not in comparison["why"]
+
+
+@pytest.mark.parametrize("comparison", [
+    {"excused_share_at_most": 0.011, "why": "over the most"},
+    {"excused_share_at_most": -0.001, "why": "under nothing"},
+    {"excused_share_at_most": 0.001, "why": " "},
+    {"excused_share_at_most": 0.001},
+    {"excused_share_at_most": "0.001", "why": "not a number"},
+    {"excused_share_at_most": 0.001, "why": "near-ties", "margin": 1e-5},
+])
+def test_a_comparison_out_of_bounds_is_refused(comparison):
+    with pytest.raises(ValueError):
+        comparison_of({"name": "c", "comparison": comparison})
+    assert comparison_of({"name": "c"}) is None
+    assert MAX_EXCUSED_SHARE == 0.01
 
 
 def test_configs_and_files_are_one_to_one():

@@ -20,10 +20,33 @@ def _log():
 
 
 def test_rate_counts_only_frames_done_inside_the_window():
+    """The stall costs what it cost: 50 calls inside, and of call 50, the
+    next completion (1.01 s), the share of the way from the last completion
+    (0.50 s) to it that the window covers; not the 800 frames/s of a rate
+    from the first completion to the last."""
     calls = _log()
     inside = [c for c in calls if 0.0 <= c.done_s <= 1.0]
     assert len(inside) == 50  # calls 0-49 finish by 0.5 s; the rest after 1.0 s
-    assert window.frames_per_s(calls, 0.0, 1.0) == pytest.approx(50 * 8 / 1.0)
+    assert window.frames_per_s(calls, 0.0, 1.0) == pytest.approx(
+        50 * 8 + 8 * (1.0 - 0.50) / (1.01 - 0.50))
+    assert window.frames_per_s(calls, 0.0, 1.0) == pytest.approx(407.843, abs=1e-3)
+
+
+def test_with_no_completion_after_the_end_the_rate_is_the_frames_done_inside():
+    calls = _log()[:50]
+    assert window.frames_per_s(calls, 0.0, 1.0) == 50 * 8 / 1.0
+    assert window.frames_per_s(calls[:10], 0.0, 0.5) == 10 * 8 / 0.5
+
+
+@pytest.mark.parametrize("phase", [0.0, 0.013, 0.25, 0.5, 0.77, 0.999])
+@pytest.mark.parametrize("every_s", [0.0031, 0.013, 0.4])
+def test_a_steady_log_reads_its_rate_whatever_its_phase_against_the_window(phase, every_s):
+    """Calls of 8 frames finishing every ``every_s``, from before the window
+    to after it, read 8 / ``every_s`` at every phase: no quantum of a call."""
+    first = -3 * every_s + phase * every_s
+    calls = [window.Call(k, 8, 0.0, 0.0, done_s=first + k * every_s)
+             for k in range(int(1.0 / every_s) + 7)]
+    assert window.frames_per_s(calls, 0.0, 1.0) == pytest.approx(8 / every_s, rel=1e-9)
 
 
 def test_tail_sees_the_stall():

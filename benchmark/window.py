@@ -14,8 +14,10 @@ On the CPU (the tests), a call's work is done when it returns.
 
 from __future__ import annotations
 
+import bisect
 import collections
 import dataclasses
+import itertools
 import random
 import statistics
 import time
@@ -189,9 +191,33 @@ def closed_loop(step: Callable, pool: list, frames_per_call: int, seconds: float
 
 
 def frames_per_s(calls: List[Call], t_start: float, t_end: float) -> float:
-    """Frames of the calls that finished inside the window, over its seconds."""
-    done = sum(c.frames for c in calls if t_start <= c.done_s <= t_end)
-    return done / (t_end - t_start)
+    """Frames done in the window, over its seconds, read off the cumulative
+    frames-done curve at the window's two edges. The curve steps by a call's
+    frames where it finished; at an edge it is read by linear interpolation
+    between the last completion before the edge and the first after it, so
+    the reading carries no quantum of a call whatever the phase of the
+    window against the completions. Where no completion lies after the end,
+    the end is read as a step: the frames of the calls that finished inside.
+    The closed loop starts on an idle card, so no completion lies before the
+    start and the start reads 0; a stall in the window costs its time."""
+    done = sorted((c.done_s, c.frames) for c in calls)
+    times = [t for t, _ in done]
+    before = list(itertools.accumulate((f for _, f in done), initial=0))
+
+    def curve(t: float, k: int) -> float:
+        # ``k`` completions lie before ``t``; the next ones, at one instant,
+        # count in proportion to how far ``t`` lies toward them.
+        if k == len(done):
+            return before[k]
+        prev = times[k - 1] if k else t_start
+        if t <= prev:
+            return before[k]
+        at_next = bisect.bisect_right(times, times[k])
+        return before[k] + (before[at_next] - before[k]) * (t - prev) / (times[k] - prev)
+
+    start = curve(t_start, bisect.bisect_left(times, t_start))
+    end = curve(t_end, bisect.bisect_right(times, t_end))
+    return (end - start) / (t_end - t_start)
 
 
 def latency_ms(calls: List[Call]) -> List[float]:
