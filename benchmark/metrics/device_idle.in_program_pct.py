@@ -1,7 +1,8 @@
 """The share of the traced window in which the device stood idle while the
-host was inside a ``rig.process_batch`` span: the window minus the union of
-kernels, copies and sets, intersected with the union of those spans, over
-the window. What is left of ``device_idle_pct`` is the benchmark loop's."""
+host was inside a call span (``run.call_span``, the rig's
+``rig.process_batch``): the window minus the union of kernels, copies and
+sets, intersected with the union of those spans, over the window. What is
+left of ``device_idle_pct`` is the benchmark loop's."""
 
 from benchmark import spans, trace
 
@@ -12,7 +13,7 @@ MOVES = "frames_per_s"
 
 def read(run):
     tr = run.trace
-    found = spans.calls(tr)
+    found = spans.calls(tr, run.call_span)
     if not found:
         return None
     busy = [(o.start_us, o.end_us) for o in tr.device]

@@ -10,4 +10,4 @@ MOVES = "frames_per_s"
 
 
 def read(run):
-    return spans.median_span_ms(run.trace, ("rig.intake",))
+    return spans.median_span_ms(run.trace, ("rig.intake",), run.call_span)

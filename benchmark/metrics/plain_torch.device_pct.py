@@ -1,10 +1,10 @@
 """The share of the device's busy time spent in kernels that are not the
-program's own CUDA kernels (``kernels/csrc``): the right-view gather, the LR
-check, casts and stacking, in plain torch."""
+program's own CUDA kernels (``kernels/csrc``): on the bm+ path the median's
+int32 cast and the ``torch.stack`` of a batch's maps, in plain torch."""
 
 from benchmark import trace
 
-LAYER = "Plain-torch stages: block_matching.py::_right_view_sad, lr_consistency_mask"
+LAYER = "Plain-torch stages: the median's int32 cast and torch.stack, the one-launch bm.lr_check"
 UNIT = "%"
 MOVES = "frames_per_s"
 # Every kernel of the program's kernels/csrc.

@@ -6,6 +6,22 @@ A configuration names its system, ``systems/<system>.py``, which builds the
 program's entry and its plain reference. A metric is a reader,
 ``metrics/<name>.py``. Each is looked up in the registry's roots in order,
 so adding a cell, a mix, a metric or a system is adding files and entries.
+
+A system module provides:
+
+- ``build(config, device)``: the program built for ``config`` on ``device``,
+  an object whose ``process_batch(left, right)`` takes a batch of (B, H, W, 3)
+  uint8 frame pairs and returns the batch's maps, one (H, W) map a pair, in
+  the integer dtype its reference gives (the rig's: int32);
+- ``reference(config, device, control=False)``: ``(left, right) -> maps`` by
+  the plain reference, which imports nothing of the program; under a
+  configuration that states a ``comparison`` it returns ``(maps, excused)``
+  (``run.py::split_reference``); ``control=True`` computes it in the
+  precision below the configuration's (``control.py``);
+- optionally ``tiny(config)``: ``config`` cut to a CPU test's size, its
+  ``name`` the stand-in's (``tests/conftest.py::tiny_registry``);
+- optionally ``CALL_SPAN``: the span the program opens around a call of its
+  entry, which the span readers count calls by (``spans.CALL`` where absent).
 """
 
 from __future__ import annotations

@@ -58,6 +58,7 @@ class Run:
     traffic: dict
     batch: int
     setup_s: float
+    call_span: str  # the span the program opens around a call (the system's CALL_SPAN)
     calls: list = dataclasses.field(default_factory=list)  # the untraced window's calls
     t_start: float = 0.0
     t_end: float = 0.0
@@ -140,7 +141,7 @@ def run_cell(registry, name: str, seed: int, seconds: float, traced: bool, devic
     ``stages`` holds the set-up's seconds so far, by stage."""
     import torch
 
-    from benchmark import scene, trace, window
+    from benchmark import scene, spans, trace, window
 
     cell = registry.cell(name)
     cfg, mix = cell.config, cell.traffic
@@ -169,7 +170,8 @@ def run_cell(registry, name: str, seed: int, seconds: float, traced: bool, devic
     stage("warm_up")
     clock = window.CudaClock(device) if cuda else window.HostClock()
     sample = window.Sample(seed, len(pool))
-    run = Run(cfg, mix, batch, time.perf_counter() - t_process)
+    run = Run(cfg, mix, batch, time.perf_counter() - t_process,
+              getattr(system, "CALL_SPAN", spans.CALL))
 
     def loop(secs: float, first: int = 0):
         return window.closed_loop(step, pool, batch, secs, in_flight, clock, sample, first)

@@ -2,6 +2,7 @@
 control, and the frozen work counts at the cells' shapes."""
 
 import ast
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -11,11 +12,13 @@ import pytest
 import torch
 
 from benchmark import roofline
-from benchmark.registry import HERE
+from benchmark.registry import BENCHMARK_JSON, HERE, Registry
 from benchmark.reference import stereo_rig as ref
 from benchmark.run import FORBIDDEN, forbidden_modules
 
 MODULES = sorted(HERE.rglob("*.py"))
+SYSTEMS = sorted({Registry().config(c["name"])["system"]
+                  for c in json.loads(BENCHMARK_JSON.read_text())["configs"]})
 
 
 def _imported(path: Path) -> set:
@@ -43,15 +46,22 @@ def test_top_level_names_are_compared_whole():
     assert set(FORBIDDEN) == {"jax", "jaxlib", "flax", "gpu_stereo_matching_tpu"}
 
 
-def test_the_benchmark_and_the_rig_load_without_jax():
+@pytest.mark.parametrize("system", SYSTEMS)
+def test_the_benchmark_and_the_rig_load_without_jax(system):
+    """The harness, every reader, the system and each module of the program
+    that the system imports, in a fresh process."""
+    path = Path(Registry().system(system).__file__)
+    program = sorted(n for n in _imported(path)
+                     if n.split(".")[0] == "gpu_stereo_matching_tpu_torch")
     code = ("import sys; sys.path.insert(0, %r)\n"
             "import benchmark.run, benchmark.control, benchmark.faults, benchmark.scene\n"
             "from benchmark.registry import Registry\n"
             "r = Registry()\n"
             "[r.metric(m['name']) for m in r.spec['end_to_end'] + r.spec['per_layer']]\n"
-            "r.system('stereo_rig')\n"
-            "import gpu_stereo_matching_tpu_torch.models.streaming\n"
-            "print(benchmark.run.forbidden_modules())\n") % str(HERE.parent)
+            "r.system(%r)\n"
+            "%s"
+            "print(benchmark.run.forbidden_modules())\n") % (
+                str(HERE.parent), system, "".join(f"import {m}\n" for m in program))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=300, cwd=HERE.parent)
     assert out.returncode == 0, out.stderr
@@ -106,7 +116,7 @@ def test_reference_equals_the_program_s_plain_path(fused, tiny):
     reference, written apart from them, gives the same disparities."""
     from benchmark.systems import stereo_rig
 
-    cfg = tiny.config("rig800-fused-tiny" if fused else "rig800-plus-tiny")
+    cfg = tiny.config("fused.tiny" if fused else "plus.tiny")
     left, right = _pair(11)
     program = stereo_rig.build(cfg, torch.device("cpu")).process_batch(left, right)
     expected = stereo_rig.reference(cfg, torch.device("cpu"))(left, right)
@@ -115,8 +125,7 @@ def test_reference_equals_the_program_s_plain_path(fused, tiny):
     assert expected.float().std() > 0
 
 
-@pytest.mark.parametrize("cell", ["fused.tiny", "plus.tiny"])
-def test_the_control_fails_the_comparison(cell, tiny):
+def test_the_control_fails_the_comparison(stand_in, tiny):
     """The reference with its front end in bfloat16, the precision below
     float32, put in the program's place under the entry, comes out not
     correct through the harness's own check on every seed tried."""
@@ -124,8 +133,8 @@ def test_the_control_fails_the_comparison(cell, tiny):
     from benchmark.run import run_cell
 
     for seed in (1, 2, 3):
-        result, _, _ = run_cell(tiny, cell, seed, 0.3, False, torch.device("cpu"), 0.0,
-                                wrap=control(tiny, cell, torch.device("cpu")))
+        result, _, _ = run_cell(tiny, stand_in, seed, 0.3, False, torch.device("cpu"), 0.0,
+                                wrap=control(tiny, stand_in, torch.device("cpu")))
         assert not result["correct"]
         assert result["checks"]["disparity_mismatch_px"]["value"] > 0
 

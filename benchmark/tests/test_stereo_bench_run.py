@@ -15,15 +15,14 @@ import torch
 from benchmark import faults
 from benchmark.control import control
 from benchmark.registry import BENCHMARK_JSON, HERE, Registry
-from benchmark.run import run_cell
+from benchmark.run import comparison_of, run_cell
 
 KEYS = ["correct", "attempted", "failed", "metrics", "device"]
 SEED = 2**31 + 101
 
 
-@pytest.mark.parametrize("cell", ["fused.tiny", "plus.tiny"])
-def test_a_run_is_correct_and_its_line_ends_with_the_checks(cell, tiny):
-    result, lines, checks = run_cell(tiny, cell, SEED, 1.0, False, torch.device("cpu"), 0.0)
+def test_a_run_is_correct_and_its_line_ends_with_the_checks(stand_in, tiny):
+    result, lines, checks = run_cell(tiny, stand_in, SEED, 1.0, False, torch.device("cpu"), 0.0)
     assert list(result) == KEYS + ["checks"]
     assert result["correct"] and result["failed"] == 0 and result["attempted"] >= 2
     assert set(result["metrics"]) == {"frames_per_s", "call_p95_ms", "setup_s"}
@@ -31,9 +30,10 @@ def test_a_run_is_correct_and_its_line_ends_with_the_checks(cell, tiny):
     assert result["checks"]["disparity_mismatch_px"] == {"value": 0, "at_most": 0}
     assert result["checks"]["pool_batches_checked"] == {"value": 2, "at_least": 2}
     assert checks[0] == "check disparity_mismatch_px 0 at_most 0"
-    # An exact configuration states no comparison: no excused line.
-    assert [c.split()[1] for c in checks] == ["disparity_mismatch_px", "frames_checked",
-                                             "pool_batches_checked"]
+    # The excused line only under a stated comparison (the rig's are exact).
+    excused = ["disparity_excused_px"] if comparison_of(tiny.cell(stand_in).config) else []
+    assert [c.split()[1] for c in checks] == ["disparity_mismatch_px", *excused,
+                                             "frames_checked", "pool_batches_checked"]
     assert list(json.loads(lines[0])) == ["setup_stages_s"]
     json.dumps(result)
 
@@ -50,20 +50,18 @@ def test_a_traced_run_gives_the_per_layer_metrics_and_a_breakdown(tiny):
 
 
 @pytest.mark.parametrize("fault", sorted(faults.FAULTS))
-@pytest.mark.parametrize("cell", ["fused.tiny", "plus.tiny"])
-def test_a_planted_fault_is_not_correct(fault, cell, tiny):
-    result, _, _ = run_cell(tiny, cell, SEED, 0.5, False, torch.device("cpu"), 0.0,
-                            wrap=faults.FAULTS[fault])
+def test_a_planted_fault_is_not_correct(fault, stand_in, tiny):
+    result, _, _ = run_cell(tiny, stand_in, SEED, 0.5, False, torch.device("cpu"), 0.0,
+                            wrap=faults.for_config(tiny.cell(stand_in).config)[fault])
     assert not result["correct"]
     assert result["failed"] >= 1 and result["checks"]["disparity_mismatch_px"]["value"] > 0
 
 
-@pytest.mark.parametrize("cell", ["fused.tiny", "plus.tiny"])
-def test_a_state_left_unchanged_fails_on_every_seed(cell, tiny):
+def test_a_state_left_unchanged_fails_on_every_seed(stand_in, tiny):
     """Every batch of the pool is compared, so maps that never change after
     the first call fail whatever calls the seed draws."""
     for seed in range(2**31 + 1, 2**31 + 9):
-        result, _, _ = run_cell(tiny, cell, seed, 0.2, False, torch.device("cpu"), 0.0,
+        result, _, _ = run_cell(tiny, stand_in, seed, 0.2, False, torch.device("cpu"), 0.0,
                                 wrap=faults.unchanged_state)
         assert not result["correct"], seed
         assert result["checks"]["pool_batches_checked"]["value"] == 2

@@ -45,8 +45,8 @@ EVENTS = [
 ]
 
 
-def _read(name, events=EVENTS):
-    run = types.SimpleNamespace(trace=trace.parse(events))
+def _read(name, events=EVENTS, call_span=spans.CALL):
+    run = types.SimpleNamespace(trace=trace.parse(events), call_span=call_span)
     return Registry().metric(name).read(run)
 
 
@@ -85,6 +85,17 @@ def test_a_trace_without_the_spans_or_the_device_gives_nothing(name):
     no_spans.append(_span(trace.WINDOW, 0.0, 1000.0))
     assert _read(name, no_spans) is None
     assert _read(name, [e for e in EVENTS if e["cat"] != "kernel"]) is None
+
+
+@pytest.mark.parametrize("name", ["entry.launches", "device_idle.in_program_pct",
+                                  "plain_torch.host_ms", "intake.host_ms"])
+def test_calls_are_the_spans_the_system_names(name):
+    """A system whose entry opens ``st.process_batch`` gets the same readings
+    from its own calls, and none under the rig's name."""
+    renamed = [{**e, "name": "st.process_batch"} if e["name"] == spans.CALL else e
+               for e in EVENTS]
+    assert _read(name, renamed, "st.process_batch") == pytest.approx(_read(name))
+    assert _read(name, renamed) is None
 
 
 def test_fused_calls_have_no_plain_torch_spans():

@@ -8,11 +8,14 @@ pixels whose sum lies on a step of ``quantum``, where a float sum may fall
 on either side. The configuration's ``toy_flip`` plants mismatches in the
 program's maps: ``excused`` lowers every excused pixel by one,
 ``unexcused`` raises the first pixel that is not excused. The control sums
-in bfloat16."""
+in bfloat16. Its calls are counted by a span of its own, ``CALL_SPAN``,
+and ``tiny`` cuts it to 128x256."""
 
 from __future__ import annotations
 
 import torch
+
+CALL_SPAN = "toy.process_batch"
 
 
 def _sums(left, right):
@@ -47,3 +50,8 @@ def reference(config: dict, device: torch.device, control: bool = False):
         return (sums // quantum).to(torch.uint8), sums % quantum == 0
 
     return answer
+
+
+def tiny(config: dict) -> dict:
+    config.update(name=f"{config['name']}.tiny", image_hw=[128, 256])
+    return config
