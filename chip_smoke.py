@@ -3063,15 +3063,18 @@ def main() -> int:
     lap("3")
 
     # 4. Kernel B's two entries vs their twins: the rig's maps at 720p, then
-    # ragged shapes through wild maps; cases counted per body.
+    # ragged shapes through wild maps; the u8 entry's cases counted per
+    # body, the front end's tiles per path (front_end_tiles, the kernel's rule).
     size_hw, num_d, radius = (720, 1280), 64, 5
     cfg = BlockMatchingConfig(num_disparities=num_d, sad_radius=radius)
     rig = StereoRig(synthetic_calibration(), size_hw, cfg, device=dev)
     rig_maps = (rig.left_map_x, rig.left_map_y, rig.right_map_x, rig.right_map_y)
-    remap_bodies = {entry: dict.fromkeys(remap.BODIES, 0) for entry in ("u8", "front_end")}
+    remap_bodies = dict.fromkeys(remap.BODIES, 0)
+    front_end_paths = {"staged": 0, "gathered": 0}
 
     def check_b(entry, frames, maps, what):
-        """One launch of ``entry`` against its twin; returns the body it ran."""
+        """One launch of ``entry`` against its twin; returns the u8 entry's
+        body, or the front end's tiles by path."""
         before = dict(remap.BODY_LAUNCHES)
         if entry == "u8":
             got, want = [remap.remap_bilinear_u8_direct(frames[0], *maps[:2])], \
@@ -3083,18 +3086,23 @@ def main() -> int:
         for g, w in zip(got, want):
             if g.shape != w.shape or not torch.equal(g, w):
                 raise AssertionError(f"remap {entry} differs from its twin ({what})")
+        if entry != "u8":
+            tiles = remap.front_end_tiles(frames[0].shape[1:3], *maps)
+            for k in front_end_paths:
+                front_end_paths[k] += tiles[k]
+            return tiles
         body = next(k for k in remap.BODIES if remap.BODY_LAUNCHES[k] == before[k] + 1)
-        remap_bodies[entry][body] += 1
+        remap_bodies[body] += 1
         return body
 
-    rig_bodies = set()
+    rig_bodies, rig_share = set(), set()
     for b in (1, 3, 8):
         src = u8((b, *size_hw))
         for view in (0, 1):
             rig_bodies.add(check_b("u8", [src], rig_maps[2 * view:2 * view + 2],
                                    f"rig view {view}, B={b}"))
-        rig_bodies.add(check_b("front_end", [u8((b, *size_hw, 3)), u8((b, *size_hw, 3))], rig_maps,
-                               f"rig, B={b}"))
+        rig_share.add(check_b("front_end", [u8((b, *size_hw, 3)), u8((b, *size_hw, 3))],
+                              rig_maps, f"rig, B={b}")["staged_share"])
     rng_b = np.random.default_rng(SEED + 4)
     for hs, ws, ho, wo, b, offset, aligned in REMAP_CASES:
         maps = []
@@ -3112,14 +3120,20 @@ def main() -> int:
                         f"{(hs, ws, ho, wo, b, offset, aligned)}")
     valid_share = float((remap_bilinear_u8(torch.full(size_hw, 255, dtype=torch.uint8, device=dev),
                                            rig.left_map_x, rig.left_map_y) > 0).float().mean())
-    if not all(all(v.values()) for v in remap_bodies.values()) or rig_bodies != {"vector"}:
-        raise AssertionError(f"phase 4 must cover both bodies of each entry and take the vector "
-                             f"body at 720p: {remap_bodies}, {rig_bodies}")
+    if (not all(remap_bodies.values()) or rig_bodies != {"vector"}
+            or not all(front_end_paths.values()) or rig_share != {100.0}
+            or rig.front_end_tiles["staged_share"] != 100.0):
+        raise AssertionError(
+            f"phase 4 must cover both bodies of the u8 entry (the vector body at 720p) and both "
+            f"paths of the front end (the rig's tiles all staged): {remap_bodies}, {rig_bodies}, "
+            f"{front_end_paths}, {rig_share}, {rig.front_end_tiles}")
     if valid_share < 0.8:
         raise AssertionError(f"rectification maps keep only {valid_share:.3f} of the frame")
     log("4-remap-kernel-vs-twin", rig=[*size_hw], batches=[1, 3, 8],
-        ragged_cases=len(REMAP_CASES), cases_by_entry_and_body=remap_bodies,
-        body_at_720p=rig_bodies.pop(), max_abs_err=0, valid_share=valid_share, ok=True)
+        ragged_cases=len(REMAP_CASES), u8_cases_by_body=remap_bodies,
+        front_end_tiles_by_path=front_end_paths, body_at_720p=rig_bodies.pop(),
+        rig_staged_share=rig.front_end_tiles["staged_share"], max_abs_err=0,
+        valid_share=valid_share, ok=True)
     lap("4")
 
     # 5. Kernel G vs the twin on the CPU over all 2**24 BGR triples, then on
@@ -3247,7 +3261,8 @@ def main() -> int:
                                 reps=3),
             **bound(*remap_work(b, n_720, 2, True))}
     log("7-time", kernel="rectify_gray_pair", shape=[*size_hw], views=2, by_batch=times_f,
-        plan=remap.front_end_plan(size_hw, size_hw, 8, device=dev))
+        staged_share=rig.front_end_tiles["staged_share"],
+        plan=remap.front_end_plan(size_hw, size_hw, 8, device=dev, maps=rig_maps))
     t_rig = cuda_ms(lambda: rig.process_batch(lb, rb), TIME_REPS)
     t_plain_rig = cuda_ms(lambda: plain_path(lb, rb), reps=3)
     t_one = cuda_ms(lambda: rig.process(*pairs[0]), TIME_REPS)

@@ -23,9 +23,10 @@ than the host's enqueue) and, for the rank-select body, the select loop's
 instructions per pixel from the library's SASS.
 With ``--front-end`` it times the rig's front end (``rectify_gray_pair``: a
 ``BxHxW`` shape is B BGR frames a view, both views in one launch, through
-smooth maps of a rectification's kind) beside the gray kernel over the same
-left frames and the u8 remap entry over their gray, each with its device
-time under ``torch.profiler``.
+smooth maps of a rectification's kind; its plan gives the tiles that take
+the staged path) beside the gray kernel over the same left frames and the
+u8 remap entry over their gray, each with its device time under
+``torch.profiler``.
 To compare two trees, run each tree's module in turns on one card.
 """
 
@@ -191,7 +192,8 @@ def time_front_end(rng, dev, shape, reps: int) -> dict:
     times = {name: {"ms": cuda_ms(run, reps), "device_ms": device_ms(run, reps)}
              for name, run in runs.items()}
     return {"kernel": "rectify_gray_pair", "shape": list(shape), "times_per_launch": times,
-            "plan": remap.front_end_plan((h, w), (h, w), b, device=dev), "equals_twin": equals}
+            "plan": remap.front_end_plan((h, w), (h, w), b, device=dev, maps=maps),
+            "equals_twin": equals}
 
 
 def main(argv=None) -> int:

@@ -45,8 +45,10 @@ _SIGNATURES = {
     "gsm_sad_key_u8": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "gsm_sad_key_plan": [_I, _I, _I, _I, _I, _I, _P],
     "gsm_remap_bilinear_u8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
-    "gsm_rectify_gray_pair": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
-    "gsm_remap_plan": [_I, _I, _I, _I, _I, _I, _P],
+    "gsm_rectify_gray_pair": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "gsm_front_end_tiles": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "gsm_remap_plan": [_I, _I, _I, _I, _I, _P],
+    "gsm_front_end_plan": [_I, _I, _I, _I, _I, _P],
     "gsm_gray_u8": [_P, _P, ctypes.c_longlong, ctypes.c_float, ctypes.c_float,
                     ctypes.c_float, _I, _P],
     "gsm_sad_volume_u8": [_P, _P, _P, _I, _I, _I, _I, _I, _P],

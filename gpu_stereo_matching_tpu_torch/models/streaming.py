@@ -30,7 +30,7 @@ from gpu_stereo_matching_tpu_torch.calib.rectify import rectification_maps_from_
 from gpu_stereo_matching_tpu_torch.core.config import BlockMatchingConfig
 from gpu_stereo_matching_tpu_torch.io.calib_yaml import StereoCalibration
 from gpu_stereo_matching_tpu_torch.device import resolve_device
-from gpu_stereo_matching_tpu_torch.kernels.remap import rectify_gray_pair
+from gpu_stereo_matching_tpu_torch.kernels.remap import front_end_tiles, rectify_gray_pair
 from gpu_stereo_matching_tpu_torch.kernels.sad_wta import (
     fused_block_matching,
     fused_block_matching_batched,
@@ -81,6 +81,10 @@ class StereoRig(nn.Module):
         # Copies: a buffer loaded in place must not write into the cache.
         for name, m in zip(MAP_NAMES, (lmx, lmy, rmx, rmy)):
             self.register_buffer(name, torch.tensor(np.asarray(m, np.float32), device=dev))
+        # How the front end will run on these maps: its tiles that take the
+        # staged path and those that gather (``kernels/remap.py::front_end_tiles``).
+        self.front_end_tiles = front_end_tiles(
+            self.image_size_hw, *(getattr(self, name) for name in MAP_NAMES))
 
     @property
     def device(self) -> torch.device:
